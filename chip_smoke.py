@@ -1,0 +1,539 @@
+"""On-card smoke test of the PyTorch/H100 port (star_tpu_torch).
+
+    python3 chip_smoke.py            # everything, on one CUDA card
+
+1. prints the card's name and power limit and builds the CUDA kernels of
+   star_tpu_torch/csrc with nvcc (timed);
+2. holds each kernel (K1 packed flash, K2 d=512 flash, K4 frame attention,
+   K5 fused GN+SiLU+temporal conv) against its plain PyTorch version at the
+   shapes the main path gives it, and times kernel, plain version and one
+   PyTorch library call with CUDA events; then runs a small-width
+   UNet+ControlNet and VAE on the card (bf16, kernels) against the same
+   weights on the host (fp32, plain versions);
+3. builds the full-width models with seeded random bf16 weights on the card
+   and runs STARPipeline.enhance_a_video on 8 frames of 180x320 -> 720x1280,
+   with every kernel's launch count reset just before and read just after;
+4. times one CFG UNet+ControlNet step at the bench shape (8 frames on the
+   90x160 latent grid, cfg_pair, bf16);
+5. prints one JSON line of kernel results, the card line, and as the last
+   line {"ok": true, "device": {...}}.
+
+Any failure exits non-zero before the last line is printed. Without a CUDA
+card, or without the star_tpu_torch package beside it, it fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+
+
+def log(msg: str) -> None:
+    print(f'[chip_smoke {time.strftime("%H:%M:%S")}] {msg}', flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f'nvidia-smi failed: {out.stderr}')
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+    """Mean milliseconds of fn() on the card, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops = flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+# A bf16 kernel agrees with its plain version when its largest error is
+# within MAX_TOL of the plain output's largest magnitude (3 to 5 bf16 ulps
+# there) and its RMS error within RMS_TOL of the plain output's RMS (one
+# bf16 rounding alone gives about 2e-3). Both are relative with no floor:
+# attention outputs at these shapes are near 0.01 in size, so an absolute
+# floor would pass a softmax 20% off or a lost key tile.
+MAX_TOL, RMS_TOL = 2e-2, 1e-2
+
+
+def agrees(what: str, pairs) -> tuple[float, float, float]:
+    """pairs of (kernel output, plain output) -> (max |kernel - plain|,
+    max |plain|, rms(kernel - plain) / rms(plain)); raises on disagreement."""
+    import torch
+    err = mag = sq_err = sq_ref = 0.0
+    for out, ref in pairs:
+        ref = ref.float()
+        diff = out.float() - ref
+        err = max(err, diff.abs().max().item())
+        mag = max(mag, ref.abs().max().item())
+        sq_err += torch.linalg.vector_norm(diff).item() ** 2
+        sq_ref += torch.linalg.vector_norm(ref).item() ** 2
+        del diff, ref
+    rel = math.sqrt(sq_err / sq_ref)
+    log(f'{what}: max err {err:.3e} (tol {MAX_TOL * mag:.3e}), rms err '
+        f'{rel:.3e} of rms (tol {RMS_TOL:.0e})')
+    if not (err <= MAX_TOL * mag and rel <= RMS_TOL):
+        raise AssertionError(f'{what} disagrees with its plain version')
+    return err, mag, rel
+
+
+# --------------------------------------------------------------------------
+# phase 2: each kernel against its plain version at main-path shapes
+
+
+def check_kernels(dev) -> dict[str, dict]:
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import (flash_attention as fa,
+                                    fused_temporal_conv as ftc,
+                                    temporal_attention as ta)
+    from star_tpu_torch.ops.conv3x3 import channel_stats, gn_coeffs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *s, scale=1.0: (torch.randn(
+        s, generator=g, device=dev) * scale).to(torch.bfloat16)
+    results = {}
+
+    def record(name, route, source, replaces, agree, ms, plain_ms, flops,
+               nbytes, library_ms, shape):
+        err, mag, rel = agree
+        b_ms, b_by = bound_ms(flops, nbytes)
+        results[name] = dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=0, max_abs_err=err, tol=MAX_TOL * mag,
+            rel_rms_err=rel, rel_rms_tol=RMS_TOL, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            shape=shape)
+        log(f'{name} {shape}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms '
+            f'library '
+            f'{library_ms if library_ms is None else round(library_ms, 3)} '
+            f'ms bound {b_ms:.3f} ms ({b_by})')
+
+    # K1: UNet spatial self-attention, 320 channels (5 heads of 64) at
+    # 90x160 tokens, 16 frames (cfg pair); the other scales are checked
+    # for agreement only
+    for (bsz, s, c) in ((16, 3680, 640), (16, 960, 1280), (2, 700, 320)):
+        h = c // 64
+        q, k, v = (randn(bsz, s, c) for _ in range(3))
+        agrees(f'K1 [{bsz},{s},{c}]', [(
+            fa.flash_attention_packed(q, k, v, h),
+            fa.flash_attention_packed_plain(q, k, v, h, 0.125))])
+    # kv_valid and prescaled variants of K1's contract
+    q, k, v = (randn(2, 1000, 320) for _ in range(3))
+    agrees('K1 kv_valid=777 [2,1000,320]', [(
+        fa.flash_attention_packed(q, k, v, 5, kv_valid=777),
+        fa.flash_attention_packed_plain(q, k, v, 5, 0.125, kv_valid=777))])
+    qs = (q.float() * (0.125 * fa.LOG2E)).to(torch.bfloat16)
+    agrees('K1 prescaled [2,1000,320]', [(
+        fa.flash_attention_packed(qs, k, v, 5, prescaled=True),
+        fa.flash_attention_packed_plain(qs, k, v, 5, 0.125,
+                                        prescaled=True))])
+
+    bsz, s, c, h = 16, 14400, 320, 5
+    q, k, v = (randn(bsz, s, c) for _ in range(3))
+    out = fa.flash_attention_packed(q, k, v, h)
+    # plain logits of one frame take 4 GB in fp32: two frames are compared
+    agree = agrees(f'K1 [{bsz},{s},{c}] frames 0 and {bsz - 1}', (
+        (out[bi:bi + 1], fa.flash_attention_packed_plain(
+            q[bi:bi + 1], k[bi:bi + 1], v[bi:bi + 1], h, 0.125))
+        for bi in (0, bsz - 1)))
+    ms = cuda_ms(lambda: fa.flash_attention_packed(q, k, v, h))
+
+    def plain_k1():
+        for bi in range(bsz):
+            fa.flash_attention_packed_plain(q[bi:bi + 1], k[bi:bi + 1],
+                                            v[bi:bi + 1], h, 0.125)
+    plain_ms = cuda_ms(plain_k1, reps=1)
+    to4 = lambda t: t.view(bsz, s, h, 64).transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        to4(q), to4(k), to4(v)))
+    record('flash_packed', 'cuda', 'star_tpu_torch/csrc/flash_fwd.cu',
+           'star_tpu/ops/flash_attention.py:419', agree, ms, plain_ms,
+           4.0 * bsz * h * s * s * 64, 4 * q.numel() * 2, lib_ms,
+           [bsz, s, c])
+    del q, k, v, out
+
+    # K2: SVD-VAE encoder mid attention, one head of 512 at 90x160, 8 frames
+    bsz, s, d = 8, 14400, 512
+    q, k, v = (randn(bsz, s, 1, d) for _ in range(3))
+    agree = agrees(f'K2 [{bsz},{s},1,{d}]', [(
+        fa.flash_attention(q, k, v),
+        fa.attention_plain(q, k, v, 1 / math.sqrt(d)))])
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+    plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, 1 / math.sqrt(d)),
+                       reps=1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+    record('flash_d512', 'cuda', 'star_tpu_torch/csrc/flash_fwd.cu',
+           'star_tpu/ops/flash_attention.py:256', agree, ms, plain_ms,
+           4.0 * bsz * s * s * d, 4 * q.numel() * 2, lib_ms, [bsz, s, 1, d])
+    del q, k, v
+
+    # K4: UNet temporal attention, 8 frames, 320 channels (5 heads) at
+    # 90x160, cfg pair; plus the init-temporal 8-head scale and F=3
+    for (bsz, f, n, c) in ((2, 8, 3680, 512), (1, 3, 960, 1280)):
+        q, k, v = (randn(bsz, f, n, c) for _ in range(3))
+        agrees(f'K4 [{bsz},{f},{n},{c}]', [(
+            ta.temporal_attention(q, k, v, c // 64),
+            ta.temporal_attention_plain(q, k, v, c // 64, 0.125))])
+    bsz, f, n, c = 2, 8, 14400, 320
+    h = c // 64
+    q, k, v = (randn(bsz, f, n, c) for _ in range(3))
+    agree = agrees(f'K4 [{bsz},{f},{n},{c}]', [(
+        ta.temporal_attention(q, k, v, h),
+        ta.temporal_attention_plain(q, k, v, h, 0.125))])
+    ms = cuda_ms(lambda: ta.temporal_attention(q, k, v, h), reps=20)
+    plain_ms = cuda_ms(lambda: ta.temporal_attention_plain(q, k, v, h,
+                                                           0.125), reps=2)
+    tb = lambda t: t.view(bsz, f, n, h, 64).permute(0, 2, 3, 1, 4)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        tb(q), tb(k), tb(v)), reps=5)
+    record('temporal_attention', 'cuda',
+           'star_tpu_torch/csrc/temporal_attention.cu',
+           'star_tpu/ops/temporal_attention.py:142', agree, ms, plain_ms,
+           4.0 * bsz * h * f * f * n * 64, 4 * q.numel() * 2, lib_ms,
+           [bsz, f, n, c])
+    del q, k, v
+
+    # K5: UNet TemporalConvBlockV2 stage at 320 channels (16 frames of
+    # 90x160 as a cfg pair of 8) with a residual, and the VAE decoder's
+    # alpha-folded conv2 at 128 channels (two 3-frame windows of 720x1280)
+    # with per-frame statistics
+    def k5_case(bsz, f, n, c, cout, residual, per_frame, timed):
+        x = randn(bsz, f, n, c)
+        sc = torch.rand(c, generator=g, device=dev) * 0.2 + 0.9
+        bi = torch.randn(c, generator=g, device=dev) * 0.1
+        w = torch.randn(3, 1, c, cout, generator=g, device=dev) \
+            / math.sqrt(3 * c)
+        cb = torch.randn(cout, generator=g, device=dev) * 0.1
+        r = randn(bsz, f, n, cout) if residual else None
+        st = channel_stats(x.reshape(bsz, f * n, c))
+        y, sty = ftc.fused_gn_silu_tconv3(x, sc, bi, w, cb, stats=st,
+                                          residual=r, want_stats=True,
+                                          stats_per_frame=per_frame)
+        a, b = gn_coeffs(st, f * n * (c // 32), sc, bi, 32, 1e-5)
+        yr, str_ = ftc.tconv3_plain(x, a, b, w[:, 0], cb, r, True, per_frame)
+        agree = agrees(f'K5 [{bsz},{f},{n},{c}->{cout}]', [(y, yr)])
+        del y, yr
+        # statistics: relative to the largest sum of squares (bf16
+        # rounding of the stored values differs between the fp32 and bf16
+        # prologues, and the atomic adds run in a varying order)
+        st_err = max(((sty[i] - str_[i]).abs().max()
+                      / str_[1].abs().max()).item() for i in range(2))
+        log(f'K5 [{bsz},{f},{n},{c}->{cout}] stats err {st_err:.3e} of the '
+            f'largest sum of squares (tol 2e-2)')
+        assert st_err <= 2e-2, st_err
+        if not timed:
+            return None
+        ms = cuda_ms(lambda: ftc.fused_gn_silu_tconv3(
+            x, sc, bi, w, cb, stats=st, residual=r, want_stats=True,
+            stats_per_frame=per_frame), reps=5)
+        plain_ms = cuda_ms(lambda: ftc.tconv3_plain(
+            x, a, b, w[:, 0], cb, r, True, per_frame), reps=2)
+        yp = F.pad(x, (0, 0, 0, 0, 1, 1))
+        ys = torch.cat([yp[:, t:t + f] for t in range(3)], dim=-1)
+        wb = w[:, 0].reshape(3 * c, cout).to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.matmul(ys, wb), reps=5)
+        m = bsz * f * n
+        nbytes = 2 * (x.numel() + m * cout * (2 if residual else 1)
+                      + w.numel()) + 8 * st[0].numel() + 8 * sty[0].numel()
+        return agree, ms, plain_ms, 2.0 * m * 3 * c * cout, nbytes, lib_ms
+
+    k5_case(1, 8, 3680, 640, 640, False, False, False)
+    k5_case(1, 3, 3680, 256, 256, True, True, False)
+    k5_case(2, 3, 5000, 512, 512, True, True, False)
+    agree, ms, plain_ms, flops, nbytes, lib_ms = k5_case(
+        2, 8, 14400, 320, 320, True, False, True)
+    record('fused_gn_silu_tconv3', 'cuda',
+           'star_tpu_torch/csrc/fused_tconv3.cu',
+           'star_tpu/ops/fused_temporal_conv.py:225', agree, ms, plain_ms,
+           flops, nbytes, lib_ms, [2, 8, 14400, 320])
+    agree, ms, plain_ms, flops, nbytes, lib_ms = k5_case(
+        2, 3, 921600, 128, 128, True, True, True)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    log(f'K5 VAE [2,3,921600,128] kernel {ms:.3f} ms plain '
+        f'{plain_ms:.3f} ms library {lib_ms:.3f} ms bound {b_ms:.3f} ms '
+        f'({b_by})')
+    results['fused_gn_silu_tconv3']['vae_128'] = dict(
+        shape=[2, 3, 921600, 128], max_abs_err=agree[0],
+        rel_rms_err=agree[2], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=b_ms, bound_by=b_by)
+    torch.cuda.synchronize()
+    return results
+
+
+# --------------------------------------------------------------------------
+# phase 2b: small models, kernels on the card vs plain versions on the host
+
+
+def check_small_models(dev) -> dict:
+    """Widths small enough for the host but large enough that every kernel
+    fires (d=64 heads and >=512 tokens for K1, d=512 and >=512 tokens for
+    K2): the port on the card in bf16 (kernels) against the same weights on
+    the host in fp32 (plain versions). Tolerance 5e-2 of the reference's
+    largest magnitude: bf16 keeps 8 bits and the error compounds over a
+    dozen blocks."""
+    import copy
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.models.unet.unet import ControlledV2VUNet
+    from star_tpu_torch.pipeline.build import init_like_flax
+    from star_tpu_torch.vae.svd_vae import SVDTemporalVAE
+
+    g = torch.Generator().manual_seed(3)
+
+    def randomise(m):
+        init_like_flax(m, g)
+        with torch.no_grad():   # no zero-init head or zero conv stays zero
+            for p in m.parameters():
+                p.add_(torch.randn(p.shape, generator=g) * 0.02)
+        return m.eval().requires_grad_(False)
+
+    def compare(name, ref, fn, *args, **kw):
+        on_card = [a.to(dev) for a in args]
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            out = fn(*on_card, **kw)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        err = ((out.float().cpu() - ref).abs().max()
+               / ref.abs().max().clamp_min(1e-6)).item()
+        log(f'small {name}: card (bf16, kernels) vs host (fp32, plain) '
+            f'error {err:.3e} of max |ref|; launches {counts}')
+        assert math.isfinite(err) and err <= 5e-2, (name, err)
+        return err, counts
+
+    unet = randomise(ControlledV2VUNet(
+        dim=64, dim_mult=(1, 2), num_res_blocks=1, attn_scales=(1.0, 0.5),
+        head_dim=64, num_heads_init_temporal=1, context_dim=64))
+    x, hint = (torch.randn(1, 8, 26, 24, 4, generator=g) for _ in range(2))
+    y = torch.randn(2, 77, 64, generator=g)
+    tt = torch.tensor([500])
+    with torch.no_grad():
+        ref = unet(x, tt, y, hint, cfg_pair=True)
+    card = copy.deepcopy(unet).to(dev, torch.bfloat16)
+    e_unet, c_unet = compare('UNet+ControlNet [1,8,26,24]', ref, card, x,
+                             tt, y, hint, cfg_pair=True)
+    for k in ('flash_packed', 'temporal_attention', 'fused_gn_silu_tconv3'):
+        assert c_unet.get(k, 0) > 0, (k, c_unet)
+
+    vae = randomise(SVDTemporalVAE((32, 32, 64, 512), encoder_layers=1,
+                                   decoder_layers=1))
+    video = torch.rand(1, 3, 192, 192, 3, generator=g) * 2 - 1
+    z = torch.randn(1, 3, 24, 24, 4, generator=g) * 0.5
+    with torch.no_grad():
+        ref_m = vae.encode_moments(video)
+        ref_d = vae.decode(z)
+    card = copy.deepcopy(vae).to(dev, torch.bfloat16)
+    e_enc, c_enc = compare('VAE encode [1,3,192,192]', ref_m,
+                           card.encode_moments, video)
+    e_dec, c_dec = compare('VAE decode [1,3,24,24]', ref_d, card.decode, z)
+    assert c_enc.get('flash_d512', 0) > 0 and c_dec.get('flash_d512', 0) > 0
+    assert c_dec.get('fused_gn_silu_tconv3', 0) > 0
+    return dict(unet=e_unet, vae_encode=e_enc, vae_decode=e_dec)
+
+
+# --------------------------------------------------------------------------
+# phases 3-4: the port's main path at full width
+
+
+def run_pipeline(dev) -> dict:
+    """Full-width random bf16 models, enhance_a_video on 8 frames of
+    180x320 -> 720x1280 with the default sampler (the fast 4+11 ladder);
+    returns launches, UNet calls, stage seconds and checks."""
+    import numpy as np
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.config import PipelineConfig
+    from star_tpu_torch.pipeline import build_pipeline, init_random_models
+
+    t0 = time.perf_counter()
+    models = init_random_models(seed=0, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():   # non-degenerate outputs: bump the zero-init head
+        for p in models.unet.unet.head_conv.parameters():
+            p.add_(0.01)
+    torch.cuda.synchronize()
+    n_params = {k: sum(p.numel() for p in getattr(models, k).parameters())
+                for k in ('unet', 'vae', 'text')}
+    log(f'full-width random models on the card in '
+        f'{time.perf_counter() - t0:.1f} s: {n_params}')
+    pipe = build_pipeline(models, PipelineConfig(),
+                          allow_hash_tokenizer=True, device=dev)
+    pipe.time_stages = True
+    frames = np.random.RandomState(0).uniform(
+        0, 255, (8, 180, 320, 3)).astype(np.uint8)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    unet_calls = []
+    hook = models.unet.register_forward_pre_hook(
+        lambda *_: unet_calls.append(1))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.enhance_a_video(frames, 'a good video', seed=666)
+    clip_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    hook.remove()
+    latents = pipe.last_latents
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f'enhance_a_video 8x180x320 -> {out.shape} {out.dtype} in '
+        f'{clip_s:.2f} s ({len(unet_calls)} UNet calls); stages '
+        + ', '.join(f'{k} {v:.3f} s' for k, v in pipe.stage_seconds.items())
+        + f'; peak memory {peak_gb:.1f} GB; launches {launches}')
+    assert out.shape == (8, 720, 1280, 3), out.shape
+    assert out.dtype == np.uint8, out.dtype
+    assert bool(torch.isfinite(latents).all()), 'non-finite latents'
+    assert float(out.std()) > 0.0, 'constant output'
+    missing = [k for k, n in launches.items() if n <= 0]
+    assert not missing, f'kernels not launched on the main path: {missing}'
+    return dict(models=models, pipe=pipe, launches=launches, clip_s=clip_s,
+                stages=dict(pipe.stage_seconds), unet_calls=len(unet_calls),
+                peak_gb=peak_gb, out_mean=float(out.mean()),
+                out_std=float(out.std()))
+
+
+def time_cfg_step(dev, models, profile: str | None) -> dict:
+    """One CFG UNet+ControlNet call at the bench shape: 8 frames on the
+    90x160 latent grid, cfg_pair (x/hint once, y as the pair), bf16."""
+    import torch
+    from star_tpu_torch import ops
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(1, 8, 90, 160, 4, generator=g, device=dev)
+    hint = torch.randn(1, 8, 90, 160, 4, generator=g,
+                       device=dev).to(torch.bfloat16)
+    y = torch.randn(2, 77, 1024, generator=g, device=dev).to(torch.bfloat16)
+    tt = torch.full((1,), 500, device=dev)
+    step = lambda: models.unet(x, tt, y, hint, cfg_pair=True)
+    with torch.no_grad():
+        step()
+        ops.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        per_step = ops.launch_counts()
+        ms = cuda_ms(step, reps=3, warmup=0)
+        res = dict(ms=ms, launches=per_step)
+        log(f'CFG UNet+ControlNet step [8f, 90x160, cfg_pair, bf16]: '
+            f'{ms:.1f} ms; launches per step {per_step}')
+        if profile:
+            res['profile'] = profile_step(step, profile)
+    return res
+
+
+def profile_step(step, path: str) -> dict:
+    """Device time by kernel over one step (torch.profiler), the busy
+    share, and the top kernels; the full table is written to `path`."""
+    import os
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:   # kernels only, not ops
+            continue
+        dev_us = getattr(ev, 'self_device_time_total', None)
+        if dev_us is None:
+            dev_us = getattr(ev, 'self_cuda_time_total', 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, 'w') as fh:
+        fh.write(f'wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n')
+        for ms, n, key in rows:
+            fh.write(f'{ms:10.3f} ms {n:6d}  {key}\n')
+    top = [dict(ms=round(ms, 3), count=n, kernel=key[:80])
+           for ms, n, key in rows[:12]]
+    log(f'profiled step: wall {wall_ms:.1f} ms (profiler on), device busy '
+        f'{busy_ms:.1f} ms; top: '
+        + '; '.join(f"{r['kernel'][:40]} {r['ms']} ms x{r['count']}"
+                    for r in top[:6]))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, top=top)
+
+
+# --------------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--phase', choices=('all', 'kernels'), default='all',
+                    help='kernels: build and check the kernels only')
+    ap.add_argument('--profile', metavar='FILE',
+                    help='also trace one CFG step with torch.profiler and '
+                    'write its device time by kernel to FILE')
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device; this script runs the port on '
+              'the card', file=sys.stderr)
+        return 2
+    from star_tpu_torch.ops import _build
+
+    card = card_line()
+    log(f'card: {card}')
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    _build.lib()
+    log(f'kernels built in {time.perf_counter() - t0:.1f} s')
+
+    results = check_kernels(dev)
+    if args.phase == 'kernels':
+        print(json.dumps({'kernels': list(results.values())}))
+        print(card)
+        return 0
+    small = check_small_models(dev)
+    run = run_pipeline(dev)
+    step = time_cfg_step(dev, run['models'], args.profile)
+    for name, rec in results.items():
+        rec['launches'] = run['launches'][name]
+        rec['launches_per_cfg_step'] = step['launches'][name]
+    log('summary ' + json.dumps(dict(
+        small_model_errors=small, clip_s=run['clip_s'],
+        unet_calls=run['unet_calls'],
+        stages=run['stages'], peak_gb=run['peak_gb'], cfg_step_ms=step['ms'],
+        profile=step.get('profile'))))
+    print(json.dumps({'kernels': list(results.values())}))
+    print(card)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,63 @@
+"""Per-pixel frame attention: kernel K4
+(counterpart of star_tpu/ops/temporal_attention.py).
+
+Softmax attention over the F frames at every (batch, pixel, head) of
+q/k/v in their natural [B, F, N, H*D] layout. A CUDA tensor goes through
+csrc/temporal_attention.cu (d=64, F <= 16, bf16; anything else raises); a
+CPU tensor through the plain version, the JAX package's `_xla_reference`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+LAUNCHES = 0
+
+
+def temporal_attention_plain(q, k, v, num_heads: int, scale: float):
+    b, f, n, hd = q.shape
+    d = hd // num_heads
+    q5 = q.reshape(b, f, n, num_heads, d).float()
+    k5 = k.reshape(b, f, n, num_heads, d).float()
+    v5 = v.reshape(b, f, n, num_heads, d).float()
+    logits = torch.einsum('bfnhd,bgnhd->bhfgn', q5, k5) * scale
+    probs = torch.softmax(logits, dim=3).to(q.dtype).float()
+    out = torch.einsum('bhfgn,bgnhd->bfnhd', probs, v5)
+    return out.reshape(b, f, n, hd).to(q.dtype)
+
+
+def _launch(q, k, v, num_heads: int, scale: float):
+    global LAUNCHES
+    b, f, n, hd = q.shape
+    d = hd // num_heads
+    if d != 64 or not 1 <= f <= 16:
+        raise ValueError(f'temporal attention kernel takes d=64 and F<=16, '
+                         f'got d={d} F={f}')
+    for t in (q, k, v):
+        if t.shape != q.shape or t.dtype != torch.bfloat16 \
+                or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError('temporal attention kernel takes contiguous '
+                             'bf16 CUDA q/k/v of one shape')
+    out = torch.empty_like(q)
+    err = _build.lib().star_temporal_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, f, n,
+        num_heads, float(scale), _build.stream_ptr(q.device))
+    _build.check(err, 'star_temporal_attention')
+    LAUNCHES += 1
+    return out
+
+
+def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       num_heads: int,
+                       scale: float | None = None) -> torch.Tensor:
+    """q/k/v [B, F, N, H*D] -> [B, F, N, H*D]; softmax over the frame axis
+    independently per (pixel n, head)."""
+    d = q.shape[-1] // num_heads
+    s = (1.0 / math.sqrt(d)) if scale is None else scale
+    if q.is_cuda:
+        return _launch(q, k, v, num_heads, s)
+    return temporal_attention_plain(q, k, v, num_heads, s)

@@ -5,11 +5,12 @@
 1. prints the card's name and power limit and builds the CUDA kernels of
    star_tpu_torch/csrc with nvcc (timed);
 2. holds each kernel (K1 packed flash, K2 d=512 flash, K4 frame attention,
-   K5 fused GN+SiLU+temporal conv) against its plain PyTorch version at the
-   shapes the main path gives it, and times kernel, plain version and one
-   PyTorch library call with CUDA events; then runs a small-width
-   UNet+ControlNet and VAE on the card (bf16, kernels) against the same
-   weights on the host (fp32, plain versions);
+   K5 fused GN+SiLU+temporal conv, K6 fused GN+SiLU+3x3 conv, K7 fused
+   nearest-2x+3x3 conv, K8 2x2 phase interleave) against its plain PyTorch
+   version at the shapes the main path gives it, and times kernel, plain
+   version and one PyTorch library call with CUDA events; then runs a
+   small-width UNet+ControlNet and VAE on the card (bf16, kernels) against
+   the same weights on the host (fp32, plain versions);
 3. builds the full-width models with seeded random bf16 weights on the card
    and runs STARPipeline.enhance_a_video on 8 frames of 180x320 -> 720x1280,
    with every kernel's launch count reset just before and read just after;
@@ -33,6 +34,8 @@ import time
 
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+MAIN_PATH_KERNELS = ('flash_packed', 'flash_d512', 'temporal_attention',
+                     'fused_gn_silu_tconv3', 'conv3x3', 'upsample_conv2x')
 
 
 def log(msg: str) -> None:
@@ -240,16 +243,10 @@ def check_kernels(dev) -> dict[str, dict]:
                                           stats_per_frame=per_frame)
         a, b = gn_coeffs(st, f * n * (c // 32), sc, bi, 32, 1e-5)
         yr, str_ = ftc.tconv3_plain(x, a, b, w[:, 0], cb, r, True, per_frame)
-        agree = agrees(f'K5 [{bsz},{f},{n},{c}->{cout}]', [(y, yr)])
+        what = f'K5 [{bsz},{f},{n},{c}->{cout}]'
+        agree = agrees(what, [(y, yr)])
         del y, yr
-        # statistics: relative to the largest sum of squares (bf16
-        # rounding of the stored values differs between the fp32 and bf16
-        # prologues, and the atomic adds run in a varying order)
-        st_err = max(((sty[i] - str_[i]).abs().max()
-                      / str_[1].abs().max()).item() for i in range(2))
-        log(f'K5 [{bsz},{f},{n},{c}->{cout}] stats err {st_err:.3e} of the '
-            f'largest sum of squares (tol 2e-2)')
-        assert st_err <= 2e-2, st_err
+        stats_agree(what, sty, str_)
         if not timed:
             return None
         ms = cuda_ms(lambda: ftc.fused_gn_silu_tconv3(
@@ -277,16 +274,155 @@ def check_kernels(dev) -> dict[str, dict]:
            flops, nbytes, lib_ms, [2, 8, 14400, 320])
     agree, ms, plain_ms, flops, nbytes, lib_ms = k5_case(
         2, 3, 921600, 128, 128, True, True, True)
-    b_ms, b_by = bound_ms(flops, nbytes)
-    log(f'K5 VAE [2,3,921600,128] kernel {ms:.3f} ms plain '
-        f'{plain_ms:.3f} ms library {lib_ms:.3f} ms bound {b_ms:.3f} ms '
-        f'({b_by})')
-    results['fused_gn_silu_tconv3']['vae_128'] = dict(
-        shape=[2, 3, 921600, 128], max_abs_err=agree[0],
-        rel_rms_err=agree[2], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by)
+    results['fused_gn_silu_tconv3']['vae_128'] = sub_record(
+        [2, 3, 921600, 128], agree, ms, plain_ms, flops, nbytes, lib_ms)
     torch.cuda.synchronize()
+    check_vae_kernels(dev, g, randn, record, results)
     return results
+
+
+def sub_record(shape, agree, ms, plain_ms, flops, nbytes, library_ms,
+               **extra) -> dict:
+    """A second timed shape of a kernel, logged and kept under its row."""
+    b_ms, b_by = bound_ms(flops, nbytes)
+    log(f'{shape}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms library '
+        f'{library_ms:.3f} ms bound {b_ms:.3f} ms ({b_by})')
+    return dict(shape=shape, max_abs_err=agree[0], rel_rms_err=agree[2],
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, **extra)
+
+
+def stats_agree(what, st, st_ref) -> float:
+    """Output statistics of a kernel against its plain version, relative
+    to the largest sum of squares: the stored bf16 values may round
+    differently, and the atomic adds run in a varying order."""
+    err = max(((st[i] - st_ref[i]).abs().max()
+               / st_ref[1].abs().max()).item() for i in range(2))
+    log(f'{what} stats err {err:.3e} of the largest sum of squares '
+        f'(tol 2e-2)')
+    assert err <= 2e-2, (what, err)
+    return err
+
+
+def check_vae_kernels(dev, g, randn, record, results) -> None:
+    """K6, K7 and K8 at the full-width VAE's shapes (encoder on 8 frames
+    of 720x1280, decoder calls of 6 and 2 frames)."""
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import conv3x3 as c3, upsample_conv as uc
+
+    # K6: the plain version's fp32 conv must not run in TF32 (set above)
+    def k6_case(n, h, w, c, cout, residual, timed):
+        x = randn(n, h, w, c)
+        sc = torch.rand(c, generator=g, device=dev) * 0.2 + 0.9
+        bi = torch.randn(c, generator=g, device=dev) * 0.1
+        wt = (torch.randn(cout, c, 3, 3, generator=g, device=dev)
+              / math.sqrt(9 * c)).to(torch.bfloat16)
+        cb = torch.randn(cout, generator=g, device=dev) * 0.1
+        r = randn(n, h, w, cout) if residual else None
+        st = c3.channel_stats(x)
+        what = f'K6 [{n},{h},{w},{c}->{cout}]{" +res" if residual else ""}'
+        y, sty = c3.fused_gn_silu_conv3x3(x, sc, bi, wt, cb, stats=st,
+                                          residual=r, want_stats=True)
+        a, b = c3.gn_coeffs(st, h * w * (c // 32), sc, bi, 32, 1e-6)
+        yr, str_ = c3.conv3x3_plain(x, a, b, wt, cb, r, True)
+        agree = agrees(what, [(y, yr)])
+        stats_agree(what, sty, str_)
+        del y, yr
+        if not timed:
+            return None
+        ms = cuda_ms(lambda: c3.fused_gn_silu_conv3x3(
+            x, sc, bi, wt, cb, stats=st, residual=r, want_stats=True))
+        plain_ms = cuda_ms(lambda: c3.conv3x3_plain(x, a, b, wt, cb, r,
+                                                    True), reps=1)
+        # library: one cuDNN conv of the pre-activated channels_last input
+        ya = F.silu(x * a.to(x.dtype)[:, None, None]
+                    + b.to(x.dtype)[:, None, None]).permute(0, 3, 1, 2)
+        cb16 = cb.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv2d(ya, wt, cb16, 1, 1))
+        m = n * h * w
+        nbytes = (2 * (x.numel() + m * cout * (2 if residual else 1)
+                       + 9 * c * cout) + 8 * n * c + 8 * n * cout)
+        return agree, ms, plain_ms, 2.0 * m * 9 * c * cout, nbytes, lib_ms
+
+    k6 = k6_case(8, 720, 1280, 128, 128, True, True)     # encoder down_0
+    record('conv3x3', 'cuda', 'star_tpu_torch/csrc/conv3x3.cu',
+           'star_tpu/ops/conv3x3.py:278', k6[0], *k6[1:],
+           [8, 720, 1280, 128, 128])
+    k6_case(8, 360, 640, 128, 256, False, False)          # encoder down_1
+    k6_case(6, 720, 1280, 256, 128, True, False)          # decoder up_3
+    k6_case(6, 90, 160, 512, 512, False, False)           # ragged H = 90
+    k6b = k6_case(6, 360, 640, 256, 256, True, True)      # decoder up_2
+    results['conv3x3']['k6b'] = sub_record(
+        [6, 360, 640, 256, 256], k6b[0], *k6b[1:],
+        replaces='star_tpu/ops/conv3x3.py:904')
+    results['conv3x3']['k6c'] = dict(
+        replaces='star_tpu/ops/conv3x3.py:656',
+        computed_by='the same kernel (csrc/conv3x3.cu)')
+    torch.cuda.synchronize()
+
+    # K7: the three decoder upsamples, with statistics. The plain version
+    # rounds K_rs to bf16 as the kernel does; the library call (nearest
+    # upsample + cuDNN conv with the bf16 3x3 weights) shows what that
+    # rounding costs against the un-decomposed conv.
+    def k7_case(n, h, w, c, timed):
+        x = randn(n, h, w, c)
+        wt = (torch.randn(c, c, 3, 3, generator=g, device=dev)
+              / math.sqrt(9 * c)).to(torch.bfloat16)
+        cb = torch.randn(c, generator=g, device=dev) * 0.1
+        what = f'K7 [{n},{h},{w},{c}] -> [{n},{2 * h},{2 * w},{c}]'
+        y, sty = uc.upsample_conv2x(x, wt, cb, want_stats=True)
+        k_rs = uc.phase_weights(wt)
+        yr, str_ = uc.upsample_conv2x_plain(x, k_rs, cb, True)
+        agree = agrees(what, [(y, yr)])
+        stats_agree(what, sty, str_)
+        del yr
+        x_nchw, cb16 = x.permute(0, 3, 1, 2), cb.to(torch.bfloat16)
+        library = lambda: F.conv2d(F.interpolate(
+            x_nchw, scale_factor=2.0, mode='nearest'), wt, cb16, 1, 1)
+        agrees(what + ' vs interpolate + 3x3 conv',
+               [(y, library().permute(0, 2, 3, 1))])
+        del y
+        if not timed:
+            return None
+        ms = cuda_ms(lambda: uc.upsample_conv2x(x, wt, cb, want_stats=True))
+        plain_ms = cuda_ms(lambda: uc.upsample_conv2x_plain(x, k_rs, cb,
+                                                            True), reps=1)
+        lib_ms = cuda_ms(library)
+        nbytes = 2 * (x.numel() + 4 * n * h * w * c)
+        return agree, ms, plain_ms, 2.0 * n * 4 * h * w * 4 * c * c, \
+            nbytes, lib_ms
+
+    k7_case(6, 90, 160, 512, False)
+    k7_case(6, 180, 320, 512, False)
+    k7 = k7_case(6, 360, 640, 256, True)
+    record('upsample_conv2x', 'cuda', 'star_tpu_torch/csrc/upsample_conv.cu',
+           'star_tpu/ops/conv3x3.py:1117', k7[0], *k7[1:],
+           [6, 360, 640, 256, 256])
+    results['upsample_conv2x']['library'] = (
+        'two calls: F.interpolate(nearest) + F.conv2d')
+    torch.cuda.synchronize()
+
+    # K8 at the phase shapes of the 256-channel upsample, with statistics
+    n, h, w, c = 6, 360, 640, 256
+    ps = [randn(n, h, w, c) for _ in range(4)]
+    y, sty = uc.interleave2x2(*ps, want_stats=True)
+    yr, str_ = uc.interleave2x2_plain(*ps, want_stats=True)
+    what = f'K8 4x[{n},{h},{w},{c}]'
+    agree = agrees(what, [(y, yr)])
+    assert torch.equal(y, yr), 'K8 moved a value'
+    stats_agree(what, sty, str_)
+    del y, yr
+    ms = cuda_ms(lambda: uc.interleave2x2(*ps, want_stats=True), reps=10)
+    plain_ms = cuda_ms(lambda: uc.interleave2x2_plain(*ps, want_stats=True),
+                       reps=2)
+    record('interleave2x2', 'cuda', 'star_tpu_torch/csrc/interleave2x2.cu',
+           'star_tpu/ops/conv3x3.py:1216', agree, ms, plain_ms, 0.0,
+           2 * 2 * 4 * n * h * w * c, None, [n, h, w, c])
+    results['interleave2x2']['library'] = (
+        'none: no single PyTorch call interleaves four tensors')
+    del ps
+    torch.cuda.synchronize()
 
 
 # --------------------------------------------------------------------------
@@ -357,6 +493,12 @@ def check_small_models(dev) -> dict:
     e_dec, c_dec = compare('VAE decode [1,3,24,24]', ref_d, card.decode, z)
     assert c_enc.get('flash_d512', 0) > 0 and c_dec.get('flash_d512', 0) > 0
     assert c_dec.get('fused_gn_silu_tconv3', 0) > 0
+    # the 512-channel blocks run K6 and the 512-channel upsample K7; the
+    # 64- and 32-channel upsamples are narrower than K7 takes and run the
+    # phase convs and K8
+    assert c_enc.get('conv3x3', 0) > 0 and c_dec.get('conv3x3', 0) > 0
+    assert c_dec.get('upsample_conv2x', 0) > 0
+    assert c_dec.get('interleave2x2', 0) > 0
     return dict(unet=e_unet, vae_encode=e_enc, vae_decode=e_dec)
 
 
@@ -410,8 +552,14 @@ def run_pipeline(dev) -> dict:
     assert out.dtype == np.uint8, out.dtype
     assert bool(torch.isfinite(latents).all()), 'non-finite latents'
     assert float(out.std()) > 0.0, 'constant output'
-    missing = [k for k, n in launches.items() if n <= 0]
+    # K8 is not on this path: K7 takes every full-width decoder upsample
+    # (phase 2b requires K8 on the small-width VAE instead)
+    missing = [k for k in MAIN_PATH_KERNELS if launches[k] <= 0]
     assert not missing, f'kernels not launched on the main path: {missing}'
+    log(f'VAE kernels on the main path: conv3x3 {launches["conv3x3"]} '
+        f'(expected 76: encoder 20 + two decoder calls of 28), '
+        f'upsample_conv2x {launches["upsample_conv2x"]} (expected 6), '
+        f'interleave2x2 {launches["interleave2x2"]} (expected 0)')
     return dict(models=models, pipe=pipe, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), unet_calls=len(unet_calls),
                 peak_gb=peak_gb, out_mean=float(out.mean()),

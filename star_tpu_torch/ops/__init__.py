@@ -1,15 +1,20 @@
-"""Operators of the port. The four kernel modules each hold a CUDA kernel
-wrapper, its plain PyTorch version and a launch counter:
+"""Operators of the port. The kernel modules each hold CUDA kernel
+wrappers, their plain PyTorch versions and launch counters:
 
   flash_attention       K1 (packed, d=64) and K2 (d=512)
   temporal_attention    K4
   fused_temporal_conv   K5
+  conv3x3               K6 (fused GN + SiLU + 3x3 conv)
+  upsample_conv         K7 (fused nearest-2x + 3x3 conv) and K8 (2x2 phase
+                        interleave)
 """
 
-from . import flash_attention, fused_temporal_conv, temporal_attention
+from . import (conv3x3, flash_attention, fused_temporal_conv,
+               temporal_attention, upsample_conv)
 
 KERNELS = ('flash_packed', 'flash_d512', 'temporal_attention',
-           'fused_gn_silu_tconv3')
+           'fused_gn_silu_tconv3', 'conv3x3', 'upsample_conv2x',
+           'interleave2x2')
 
 
 def launch_counts() -> dict[str, int]:
@@ -17,7 +22,10 @@ def launch_counts() -> dict[str, int]:
     return {'flash_packed': flash_attention.PACKED_LAUNCHES,
             'flash_d512': flash_attention.D512_LAUNCHES,
             'temporal_attention': temporal_attention.LAUNCHES,
-            'fused_gn_silu_tconv3': fused_temporal_conv.LAUNCHES}
+            'fused_gn_silu_tconv3': fused_temporal_conv.LAUNCHES,
+            'conv3x3': conv3x3.LAUNCHES,
+            'upsample_conv2x': upsample_conv.UPSAMPLE_LAUNCHES,
+            'interleave2x2': upsample_conv.INTERLEAVE_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -25,3 +33,6 @@ def reset_launch_counts() -> None:
     flash_attention.D512_LAUNCHES = 0
     temporal_attention.LAUNCHES = 0
     fused_temporal_conv.LAUNCHES = 0
+    conv3x3.LAUNCHES = 0
+    upsample_conv.UPSAMPLE_LAUNCHES = 0
+    upsample_conv.INTERLEAVE_LAUNCHES = 0

@@ -48,6 +48,13 @@ _SIGNATURES = {
     # want_stats, per_frame, stream
     'star_fused_gn_silu_tconv3': [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                   I, I, P],
+    # x, a, b, w, bias, residual, out, sum, sumsq, N, H, W, C, Cout,
+    # want_stats, stream
+    'star_conv3x3': [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # x, w, bias, out, sum, sumsq, N, H, W, C, Cout, want_stats, stream
+    'star_upsample_conv2x': [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # p00, p01, p10, p11, out, sum, sumsq, N, H, W, C, want_stats, stream
+    'star_interleave2x2': [P, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 
 

@@ -7,9 +7,13 @@ with the learned AlphaBlender, (3,1,1) temporal convs, time_conv_out).
 Channels-last; decode folds the independent 3-frame windows into the batch.
 
 GroupNorm statistics thread between blocks: each fused conv emits the
-(sum, sumsq) of its output, so the next GN does not re-read it. The 3x3
-convs take the plain route (ops/conv3x3.py); the temporal convs run the
-fused kernel K5 and the mid attention the d=512 flash kernel K2.
+(sum, sumsq) of its output, so the next GN does not re-read it. On the
+card the 3x3 convs of the res blocks run the fused GN+SiLU+conv kernel K6
+(ops/conv3x3.py; the encoder's conv_out, 512 -> 8, stays plain), the
+decoder upsamples the fused upsample-conv kernel K7, or the phase convs and
+the interleave kernel K8 at widths K7 does not take (ops/upsample_conv.py),
+the temporal convs the fused kernel K5 and the mid attention the d=512
+flash kernel K2.
 """
 
 from __future__ import annotations

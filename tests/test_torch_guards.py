@@ -80,23 +80,52 @@ def _refuse(*a, **k):
     raise AssertionError('a CUDA tensor reached a plain version')
 
 
-@pytest.mark.parametrize('name', ['packed', 'd512', 'temporal', 'tconv'])
+@pytest.mark.parametrize('name', ['packed', 'd512', 'temporal', 'tconv',
+                                  'conv3x3', 'upsample_conv2x',
+                                  'interleave2x2', 'upsample_phases'])
 def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
     fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
     ta = importlib.import_module('star_tpu_torch.ops.temporal_attention')
     ftc = importlib.import_module('star_tpu_torch.ops.fused_temporal_conv')
+    c3 = importlib.import_module('star_tpu_torch.ops.conv3x3')
+    uc = importlib.import_module('star_tpu_torch.ops.upsample_conv')
     launched = []
-    launch = lambda *a, **k: launched.append(name) or (
-        (a[0], None) if name == 'tconv' else a[0])
+
+    def launcher(kind, returns_stats):
+        def launch(*a, **k):
+            launched.append(kind)
+            return (a[0], None) if returns_stats else a[0]
+        return launch
     for mod, plain in ((fa, 'attention_plain'),
                        (fa, 'flash_attention_packed_plain'),
                        (ta, 'temporal_attention_plain'),
-                       (ftc, 'tconv3_plain')):
+                       (ftc, 'tconv3_plain'),
+                       (c3, 'conv3x3_plain'),
+                       (uc, 'upsample_conv2x_plain'),
+                       (uc, 'interleave2x2_plain')):
         monkeypatch.setattr(mod, plain, _refuse)
-    for mod in (fa, ta, ftc):
-        monkeypatch.setattr(mod, '_launch', launch)
+    for mod, fn, kind, pair in (
+            (fa, '_launch', name, False), (ta, '_launch', name, False),
+            (ftc, '_launch', name, True), (c3, '_launch', name, True),
+            (uc, '_launch_upsample', 'upsample_conv2x', False),
+            (uc, '_launch_interleave', 'interleave2x2', False)):
+        monkeypatch.setattr(mod, fn, launcher(kind, pair))
     x = _fake(torch.randn(1, 4, 8, 64))
-    if name == 'packed':
+    if name == 'conv3x3':
+        c3.fused_gn_silu_conv3x3(_fake(torch.randn(1, 5, 8, 128)),
+                                 torch.ones(128), torch.zeros(128),
+                                 torch.zeros(256, 128, 3, 3),
+                                 torch.zeros(256), want_stats=True)
+    elif name == 'upsample_conv2x':     # K7 widths
+        uc.upsample_conv2x(_fake(torch.randn(1, 3, 4, 64)),
+                           torch.zeros(128, 64, 3, 3), torch.zeros(128))
+    elif name == 'interleave2x2':
+        uc.interleave2x2(x, x, x, x, want_stats=True)
+    elif name == 'upsample_phases':     # narrow: phase convs, then K8
+        uc.upsample_conv2x(_fake(torch.randn(1, 3, 4, 32)),
+                           torch.zeros(32, 32, 3, 3), torch.zeros(32))
+        name = 'interleave2x2'
+    elif name == 'packed':
         fa.flash_attention_packed(_fake(torch.randn(1, 8, 128)),
                                   _fake(torch.randn(1, 8, 128)),
                                   _fake(torch.randn(1, 8, 128)), 2)
@@ -131,11 +160,88 @@ def test_launchers_refuse_what_the_kernels_do_not_take():
                     torch.zeros(3, 48, 48), None, None, False, False)
 
 
+def test_vae_resnet_block_reaches_the_conv3x3_launcher_twice(monkeypatch):
+    """A 128-channel VAE ResnetBlock2D on a CUDA tensor runs both of its
+    3x3 convs through the K6 launcher, never the plain version."""
+    from star_tpu_torch.ops import conv3x3 as c3
+    from star_tpu_torch.vae.svd_vae import ResnetBlock2D
+    calls = []
+
+    def launch(x, a, b, weight, bias, residual, want_stats):
+        calls.append((tuple(weight.shape), residual is not None))
+        out = _fake(torch.zeros(*x.shape[:3], weight.shape[0]))
+        st = (torch.zeros(x.shape[0], weight.shape[0]),) * 2
+        return out, (st if want_stats else None)
+    monkeypatch.setattr(c3, 'conv3x3_plain', _refuse)
+    monkeypatch.setattr(c3, '_launch', launch)
+    block = ResnetBlock2D(128, 128).requires_grad_(False)
+    with torch.no_grad():
+        out, st = block(_fake(torch.randn(2, 5, 8, 128)), want_stats=True)
+    assert calls == [((128, 128, 3, 3), False), ((128, 128, 3, 3), True)]
+    assert out.shape == (2, 5, 8, 128) and st[0].shape == (2, 128)
+
+
+def _vae_launch_case(case):
+    """(launcher, args) of one input the VAE kernels do not take."""
+    c3 = importlib.import_module('star_tpu_torch.ops.conv3x3')
+    uc = importlib.import_module('star_tpu_torch.ops.upsample_conv')
+    bf = lambda *s: _fake(torch.zeros(*s, dtype=torch.bfloat16))
+    ab = torch.zeros(1, 128), torch.zeros(1, 128)
+    w, bias = torch.zeros(128, 128, 3, 3), torch.zeros(128)
+    k_rs = torch.zeros(4, 2, 2, 128, 128)
+    p = bf(1, 4, 8, 16)
+    return {
+        'conv3x3_cpu': (c3._launch, (torch.zeros(1, 4, 8, 128), *ab, w, bias,
+                                     None, True)),
+        'conv3x3_fp32': (c3._launch, (_fake(torch.zeros(1, 4, 8, 128)), *ab,
+                                      w, bias, None, True)),
+        'conv3x3_strided': (c3._launch, (bf(1, 8, 4, 128).transpose(1, 2),
+                                         *ab, w, bias, None, True)),
+        'conv3x3_c48': (c3._launch, (bf(1, 4, 8, 48), *ab,
+                                     torch.zeros(128, 48, 3, 3), bias, None,
+                                     True)),
+        'conv3x3_cout64': (c3._launch, (bf(1, 4, 8, 128), *ab,
+                                        torch.zeros(64, 128, 3, 3),
+                                        torch.zeros(64), None, True)),
+        'conv3x3_residual_fp32': (c3._launch, (bf(1, 4, 8, 128), *ab, w,
+                                               bias, torch.zeros(1, 4, 8, 128),
+                                               True)),
+        'upsample_fp32': (uc._launch_upsample, (
+            _fake(torch.zeros(1, 4, 8, 128)), k_rs, bias, True)),
+        'upsample_cout64': (uc._launch_upsample, (
+            bf(1, 4, 8, 128), torch.zeros(4, 2, 2, 128, 64),
+            torch.zeros(64), True)),
+        'interleave_c12': (uc._launch_interleave, (*[bf(1, 4, 8, 12)] * 4,
+                                                   True)),
+        'interleave_shapes': (uc._launch_interleave, (p, p, p, bf(1, 4, 9, 16),
+                                                      True)),
+        'interleave_fp32': (uc._launch_interleave, (
+            *[_fake(torch.zeros(1, 4, 8, 16))] * 4, False)),
+    }[case]
+
+
+@pytest.mark.parametrize('case', [
+    'conv3x3_cpu', 'conv3x3_fp32', 'conv3x3_strided', 'conv3x3_c48',
+    'conv3x3_cout64', 'conv3x3_residual_fp32', 'upsample_fp32',
+    'upsample_cout64', 'interleave_c12', 'interleave_shapes',
+    'interleave_fp32'])
+def test_vae_launchers_refuse_what_the_kernels_do_not_take(case):
+    """The K6/K7/K8 launchers check device, dtype, contiguity and widths
+    before building anything (a CUDA-looking CPU tensor gets that far)."""
+    launch, args = _vae_launch_case(case)
+    with pytest.raises(ValueError):
+        launch(*args)
+
+
 def test_launch_counts_reset():
     from star_tpu_torch import ops
     ops.flash_attention.PACKED_LAUNCHES = 3
     ops.fused_temporal_conv.LAUNCHES = 2
+    ops.conv3x3.LAUNCHES = 5
+    ops.upsample_conv.INTERLEAVE_LAUNCHES = 1
     assert ops.launch_counts()['flash_packed'] == 3
+    assert ops.launch_counts()['conv3x3'] == 5
+    assert ops.launch_counts()['interleave2x2'] == 1
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.launch_counts()) == set(ops.KERNELS)
@@ -185,3 +291,36 @@ def test_kernels_match_plain_versions_on_the_card():
     assert agree(y, yr)
     assert float((sty[1] - str_[1]).abs().max()
                  / str_[1].abs().max()) < 2e-2
+
+    # statistics within 2e-2 of the largest sum of squares (bf16 outputs,
+    # atomic adds in a varying order)
+    def stats_agree(st, st_ref):
+        return all(float((st[i] - st_ref[i]).abs().max()
+                         / st_ref[1].abs().max()) < 2e-2 for i in range(2))
+    from star_tpu_torch.ops import conv3x3 as c3, upsample_conv as uc
+    torch.backends.cudnn.allow_tf32 = False
+    # K6: ragged H and W (11 x 21 against the 8 x 16 patch), C != Cout,
+    # residual, statistics
+    x = bf(2, 11, 21, 128)
+    sc = torch.rand(128, generator=g, device='cuda') + 0.5
+    bi = torch.randn(128, generator=g, device='cuda') * 0.1
+    w = torch.randn(256, 128, 3, 3, generator=g, device='cuda') * 0.03
+    cb = torch.randn(256, generator=g, device='cuda') * 0.1
+    res = bf(2, 11, 21, 256)
+    y, sty = c3.fused_gn_silu_conv3x3(x, sc, bi, w, cb, residual=res,
+                                      want_stats=True)
+    a, b = gn_coeffs(channel_stats(x), 11 * 21 * 4, sc, bi, 32, 1e-6)
+    yr, str_ = c3.conv3x3_plain(x, a, b, w, cb, res, True)
+    assert agree(y, yr) and stats_agree(sty, str_)
+    # K7 at a width it takes, with statistics
+    x = bf(2, 5, 9, 64)
+    w = torch.randn(128, 64, 3, 3, generator=g, device='cuda') * 0.05
+    cb = torch.randn(128, generator=g, device='cuda') * 0.1
+    y, sty = uc.upsample_conv2x(x, w, cb, want_stats=True)
+    yr, str_ = uc.upsample_conv2x_plain(x, uc.phase_weights(w), cb, True)
+    assert agree(y, yr) and stats_agree(sty, str_)
+    # K8 at a width K7 does not take (C = 40), with statistics
+    ps = [bf(3, 5, 7, 40) for _ in range(4)]
+    y, sty = uc.interleave2x2(*ps, want_stats=True)
+    yr, str_ = uc.interleave2x2_plain(*ps, want_stats=True)
+    assert torch.equal(y, yr) and stats_agree(sty, str_)

@@ -4,19 +4,27 @@
 
 1. prints the card's name and power limit and builds the CUDA kernels of
    star_tpu_torch/csrc with nvcc (timed);
-2. holds each kernel (K1 packed flash, K2 d=512 flash, K4 frame attention,
-   K5 fused GN+SiLU+temporal conv, K6 fused GN+SiLU+3x3 conv, K7 fused
-   nearest-2x+3x3 conv, K8 2x2 phase interleave) against its plain PyTorch
-   version at the shapes the main path gives it, and times kernel, plain
-   version and one PyTorch library call with CUDA events; then runs a
-   small-width UNet+ControlNet and VAE on the card (bf16, kernels) against
-   the same weights on the host (fp32, plain versions);
+2. holds each kernel (K1 packed flash, K2 d=512 flash, K2 `with_l` (the
+   d=64 training forward writing the log-sum-exp), K3 flash backward, K4
+   frame attention, K5 fused GN+SiLU+temporal conv, K6 fused GN+SiLU+3x3
+   conv, K7 fused nearest-2x+3x3 conv, K8 2x2 phase interleave) against
+   its plain PyTorch version at the shapes the main paths give it, and
+   times kernel, plain version and one PyTorch library call with CUDA
+   events; then runs a small-width UNet+ControlNet and VAE on the card
+   (bf16, kernels) against the same weights on the host (fp32, plain
+   versions), and the small UNet+ControlNet's `loss_and_grads` likewise;
 3. builds the full-width models with seeded random bf16 weights on the card
    and runs STARPipeline.enhance_a_video on 8 frames of 180x320 -> 720x1280,
    with every kernel's launch count reset just before and read just after;
 4. times one CFG UNet+ControlNet step at the bench shape (8 frames on the
    90x160 latent grid, cfg_pair, bf16);
-5. prints one JSON line of kernel results, the card line, and as the last
+5. trains: the same full-width UNet+ControlNet as the compute copy, fp32
+   masters of the ControlNet+LIEM set, remat, the frequency loss on, a
+   batch built as the training CLI builds it (VAE-encoded synthetic 720p
+   pixels, hash-tokenised text) of 8 frames on the 90x160 latent grid; one
+   warm-up step and three timed steps through make_train_step, with the
+   launch counts reset before and read after each step;
+6. prints one JSON line of kernel results, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line is printed. Without a CUDA
@@ -36,6 +44,11 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 MAIN_PATH_KERNELS = ('flash_packed', 'flash_d512', 'temporal_attention',
                      'fused_gn_silu_tconv3', 'conv3x3', 'upsample_conv2x')
+# the train step's kernels: the UNet's under autograd, and the VAE decode of
+# pred-x0 for the frequency loss (no grad)
+TRAIN_PATH_KERNELS = ('flash_packed_lse', 'flash_bwd', 'flash_d512',
+                      'temporal_attention', 'fused_gn_silu_tconv3',
+                      'conv3x3', 'upsample_conv2x')
 
 
 def log(msg: str) -> None:
@@ -278,6 +291,7 @@ def check_kernels(dev) -> dict[str, dict]:
         [2, 3, 921600, 128], agree, ms, plain_ms, flops, nbytes, lib_ms)
     torch.cuda.synchronize()
     check_vae_kernels(dev, g, randn, record, results)
+    check_train_kernels(dev, randn, record, results)
     return results
 
 
@@ -425,6 +439,148 @@ def check_vae_kernels(dev, g, randn, record, results) -> None:
     torch.cuda.synchronize()
 
 
+def bwd_plain_chunked(q, k, v, o, lse, do, heads: int, scale: float):
+    """flash_bwd_plain one (batch, head) at a time: its [S, S] fp32
+    temporaries of one head at 14400 tokens take 0.8 GB each."""
+    import torch
+    from star_tpu_torch.ops import flash_attention as fa
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for bi in range(q.shape[0]):
+        for hi in range(heads):
+            cols = slice(hi * 64, (hi + 1) * 64)
+            got = fa.flash_bwd_plain(
+                *(t[bi:bi + 1, :, cols] for t in (q, k, v, o)),
+                lse[bi:bi + 1, hi:hi + 1], do[bi:bi + 1, :, cols], 1, scale)
+            for out, g in zip((dq, dk, dv), got):
+                out[bi:bi + 1, :, cols] = g
+    return dq, dk, dv
+
+
+def check_train_kernels(dev, randn, record, results) -> None:
+    """K2 `with_l` (output and lse) and K3 (dq, dk, dv) against their plain
+    versions at the UNet's three attention scales of a train step (8
+    frames: 14400, 3680 and 960 tokens), a dead kv tail and a prescaled q;
+    both timed at [8, 14400, 320]; and gradients through the autograd
+    Function against torch.autograd through attention_plain."""
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import flash_attention as fa
+
+    def lse_fwd(q, k, v, h, kv=None, c=0.125 * fa.LOG2E):
+        return fa._launch(q, k, v, h, 64, c, k.shape[1] if kv is None else kv,
+                          want_lse=True)
+
+    def lse_agrees(what, lse, lse_ref):
+        # natural-log units: one bf16 rounding of the largest logit would
+        # move it by about 1e-2; the kernel's fp32 sums stay near 1e-5
+        err = (lse - lse_ref).abs().max().item()
+        log(f'{what} lse: max err {err:.3e} (tol 1e-3)')
+        assert err <= 1e-3, (what, err)
+        return err
+
+    for (bsz, s, c) in ((1, 14400, 320), (2, 3680, 640), (2, 960, 1280)):
+        h = c // 64
+        q, k, v, do = (randn(bsz, s, c) for _ in range(4))
+        what = f'[{bsz},{s},{c}]'
+        o, lse = lse_fwd(q, k, v, h)
+        o_ref, lse_ref = fa.flash_attention_packed_plain(
+            q, k, v, h, 0.125, return_lse=True)
+        agrees(f'K2 with_l {what}', [(o, o_ref)])
+        lse_agrees(f'K2 with_l {what}', lse, lse_ref)
+        del o_ref, lse_ref
+        got = fa._launch_bwd(q, k, v, o, lse, do, h, 0.125, s)
+        want = bwd_plain_chunked(q, k, v, o, lse, do, h, 0.125)
+        for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
+            agrees(f'K3 {name} {what}', [(a, b)])
+        del q, k, v, do, o, lse, got, want
+    # dead kv tail and prescaled q
+    q, k, v, do = (randn(2, 1000, 320) for _ in range(4))
+    for what, qq, c, scale in (
+            ('kv_valid=777', q, 0.125 * fa.LOG2E, 0.125),
+            ('kv_valid=777 prescaled',
+             (q.float() * (0.125 * fa.LOG2E)).to(torch.bfloat16), 1.0,
+             fa.LN2)):
+        o, lse = lse_fwd(qq, k, v, 5, 777, c)
+        o_ref, lse_ref = fa.flash_attention_packed_plain(
+            qq, k, v, 5, scale, 777, return_lse=True)
+        agrees(f'K2 with_l {what} [2,1000,320]', [(o, o_ref)])
+        lse_agrees(f'K2 with_l {what}', lse, lse_ref)
+        got = fa._launch_bwd(qq, k, v, o, lse, do, 5, scale, 777)
+        want = fa.flash_bwd_plain(qq, k[:, :777], v[:, :777], o, lse, do,
+                                  5, scale)
+        agrees(f'K3 {what} [2,1000,320]', [(got[0], want[0]),
+                                           (got[1][:, :777], want[1]),
+                                           (got[2][:, :777], want[2])])
+        assert all(float(t[:, 777:].abs().max()) == 0.0 for t in got[1:])
+    # the autograd Function end to end against autograd through the plain
+    # attention
+    q, k, v, do = (randn(2, 3680, 640) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention_packed(*leaves, 10),
+                              leaves, do)
+    to4 = lambda t: t.view(2, 3680, 10, 64)
+    ref_out = fa.attention_plain(*(to4(t) for t in leaves), 0.125)
+    want = torch.autograd.grad(ref_out, leaves, to4(do))
+    agrees('autograd flash_attention_packed [2,3680,640] vs autograd '
+           'through attention_plain', list(zip(got, want)))
+    del q, k, v, do, leaves, got, want, ref_out
+    torch.cuda.synchronize()
+
+    # timing at the train step's 14400-token scale, 8 frames, 5 heads
+    bsz, s, c, h = 8, 14400, 320, 5
+    q, k, v, do = (randn(bsz, s, c) for _ in range(4))
+    o, lse = lse_fwd(q, k, v, h)
+    agree_f = agrees(f'K2 with_l [{bsz},{s},{c}] frame {bsz - 1}', [(
+        o[-1:], fa.flash_attention_packed_plain(
+            q[-1:], k[-1:], v[-1:], h, 0.125))])
+    fwd_ms = cuda_ms(lambda: lse_fwd(q, k, v, h))
+    k1_ms = cuda_ms(lambda: fa.flash_attention_packed(q, k, v, h))
+
+    def plain_fwd():
+        for bi in range(bsz):
+            fa.flash_attention_packed_plain(q[bi:bi + 1], k[bi:bi + 1],
+                                            v[bi:bi + 1], h, 0.125,
+                                            return_lse=True)
+    plain_fwd_ms = cuda_ms(plain_fwd, reps=1)
+    to4 = lambda t: t.view(bsz, s, h, 64).transpose(1, 2)
+    qg, kg, vg = (to4(t).detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():   # SDPA's training forward saves its lse
+        lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg))
+    log(f'lse forward [{bsz},{s},{c}]: {fwd_ms:.3f} ms against K1 without '
+        f'lse {k1_ms:.3f} ms in the same call')
+    record('flash_packed_lse', 'cuda', 'star_tpu_torch/csrc/flash_fwd.cu',
+           'star_tpu/ops/flash_attention.py:256', agree_f, fwd_ms,
+           plain_fwd_ms, 4.0 * bsz * h * s * s * 64,
+           4 * q.numel() * 2 + 4 * bsz * h * s, lib_fwd_ms, [bsz, s, c])
+    results['flash_packed_lse'].update(
+        mode='K2 with_l: the d=64 forward writing the natural log-sum-exp',
+        k1_ms_same_call=k1_ms)
+
+    got = fa._launch_bwd(q, k, v, o, lse, do, h, 0.125, s)
+    want = bwd_plain_chunked(q[-1:], k[-1:], v[-1:], o[-1:], lse[-1:],
+                             do[-1:], h, 0.125)
+    agree = agrees(f'K3 [{bsz},{s},{c}] frame {bsz - 1}',
+                   [(a[-1:], b) for a, b in zip(got, want)])
+    del got, want
+    ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, o, lse, do, h, 0.125, s),
+                 reps=3)
+    plain_ms = cuda_ms(lambda: bwd_plain_chunked(q, k, v, o, lse, do, h,
+                                                 0.125), reps=1, warmup=0)
+    out = F.scaled_dot_product_attention(qg, kg, vg)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), to4(do), retain_graph=True), reps=3)
+    # bytes: q, k, v, o, dO read, lse and D read, dq, dk, dv written
+    record('flash_bwd', 'cuda', 'star_tpu_torch/csrc/flash_bwd.cu',
+           'star_tpu/ops/flash_attention.py:592', agree, ms, plain_ms,
+           10.0 * bsz * h * s * s * 64,
+           8 * q.numel() * 2 + 2 * 4 * bsz * h * s, lib_ms, [bsz, s, c])
+    results['flash_bwd']['library'] = (
+        'the backward of F.scaled_dot_product_attention')
+    del q, k, v, do, o, lse, qg, kg, vg, out
+    torch.cuda.synchronize()
+
+
 # --------------------------------------------------------------------------
 # phase 2b: small models, kernels on the card vs plain versions on the host
 
@@ -500,6 +656,118 @@ def check_small_models(dev) -> dict:
     assert c_dec.get('upsample_conv2x', 0) > 0
     assert c_dec.get('interleave2x2', 0) > 0
     return dict(unet=e_unet, vae_encode=e_enc, vae_decode=e_dec)
+
+
+# The small-width train step, card (bf16, kernels) against host (fp32,
+# plain versions) on the same bf16-representable weights and draws. Leaves
+# whose largest gradient is below 1e-2 of the largest of all leaves are
+# cancellation noise in either precision (a conv bias feeding a GroupNorm
+# has a zero gradient in exact arithmetic), so every leaf is held to
+# GRAD_ALL_TOL of the largest gradient of all, and the others also to
+# GRAD_LEAF_TOL of their own largest; loss and grad_norm to LOSS_TOL. Set
+# from the first two runs on an H100 (worst leaf 6.3e-2 and 8.1e-2 — the
+# order of K5's atomic statistics adds varies — all leaves 1.1e-2 both
+# times, grad_norm 2.1e-3 and 5.8e-4, loss 9e-5 and 6e-5) with a margin of
+# at least 3x, 2.7x and 4.8x; a K5 backward that drops the statistics
+# cotangent misses the first two by 7.6x and 3x on the host alone
+# (tests/test_torch_train_losses.py).
+GRAD_LEAF_TOL, GRAD_ALL_TOL, LOSS_TOL = 0.25, 0.03, 1e-2
+
+
+def grad_errors(ref: dict, got: dict) -> tuple[float, float, str]:
+    """(worst error of a leaf holding >= 1e-2 of the largest gradient,
+    relative to its own largest; worst error of any leaf relative to the
+    largest gradient of all; the name of the first)."""
+    top = max(float(r.abs().max()) for r in ref.values())
+    leaf, every, name = 0.0, 0.0, ''
+    for n, r in ref.items():
+        r = r.float()
+        err = float((got[n].float().cpu() - r).abs().max())
+        every = max(every, err / top)
+        big = float(r.abs().max())
+        if big >= 1e-2 * top and err / big > leaf:
+            leaf, name = err / big, n
+    return leaf, every, name
+
+
+def small_train_grads(model, batch, t, noise):
+    """loss_and_grads of the small ControlNet+LIEM train step: (metrics,
+    {trainable name: gradient})."""
+    from star_tpu_torch.diffusion import DiffusionTables, default_star_schedule
+    from star_tpu_torch.train import (TrainConfig, make_train_state,
+                                      make_train_step)
+    cfg = TrainConfig(freq_loss=False)
+    dev = batch['gt_latent'].device
+    _, tx = make_train_state(cfg, model)
+    step = make_train_step(cfg, model, DiffusionTables.from_schedule(
+        default_star_schedule(), dev), tx)
+    metrics = step.loss_and_grads(batch, t=t, noise=noise)
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if n in tx.names}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def small_train_case(seed: int = 5):
+    """The small-width train step's model (fp32, bf16-representable random
+    weights, every zero-init layer non-zero), batch and draws, on the
+    host: 8 frames of 26x24 latents, head dim 64, so that K1's training
+    forward and K3 run at the top scale (624 tokens)."""
+    import torch
+    from star_tpu_torch.models.unet.unet import ControlledV2VUNet
+    from star_tpu_torch.pipeline.build import init_like_flax
+    g = torch.Generator().manual_seed(seed)
+    model = ControlledV2VUNet(dim=64, dim_mult=(1, 2), num_res_blocks=1,
+                              attn_scales=(1.0, 0.5), head_dim=64,
+                              num_heads_init_temporal=1, context_dim=64)
+    init_like_flax(model, g)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+            p.copy_(p.to(torch.bfloat16).float())
+    shape = (1, 8, 26, 24, 4)
+    batch = {'gt_latent': torch.randn(shape, generator=g),
+             'lq_latent': torch.randn(shape, generator=g),
+             'y': torch.randn(1, 77, 64, generator=g)}
+    return model, batch, torch.tensor([600]), torch.randn(shape, generator=g)
+
+
+def check_small_train(dev) -> dict:
+    """loss_and_grads of the small UNet+ControlNet on the card (bf16
+    module, fp32 masters, kernels: K2 with_l, K3, K4, K5) against the host
+    (fp32, plain versions)."""
+    import copy
+    import torch
+    from star_tpu_torch import ops
+    model, batch, t, noise = small_train_case()
+    ref_m, ref_g = small_train_grads(copy.deepcopy(model), batch, t, noise)
+    card = copy.deepcopy(model).to(dev, torch.bfloat16)
+    ops.reset_launch_counts()
+    m, grads = small_train_grads(
+        card, {k: v.to(dev) for k, v in batch.items()}, t.to(dev),
+        noise.to(dev))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    leaf, every, name = grad_errors(ref_g, grads)
+    loss_err = abs(m['total_loss'] - ref_m['total_loss']) \
+        / ref_m['total_loss']
+    norm_err = abs(m['grad_norm'] - ref_m['grad_norm']) / ref_m['grad_norm']
+    log(f'small train step [1,8,26,24]: card (bf16, kernels) vs host (fp32, '
+        f'plain): loss {m["total_loss"]:.6f} vs {ref_m["total_loss"]:.6f} '
+        f'(rel {loss_err:.3e}), grad_norm {m["grad_norm"]:.6f} vs '
+        f'{ref_m["grad_norm"]:.6f} (rel {norm_err:.3e}); worst leaf error '
+        f'{leaf:.3e} of its largest ({name}; tol {GRAD_LEAF_TOL}), worst '
+        f'error {every:.3e} of the largest gradient (tol {GRAD_ALL_TOL}); '
+        f'launches {counts}')
+    for k in ('flash_packed_lse', 'flash_bwd', 'temporal_attention',
+              'fused_gn_silu_tconv3'):
+        assert counts.get(k, 0) > 0, (k, counts)
+    assert loss_err <= LOSS_TOL and norm_err <= LOSS_TOL, (loss_err,
+                                                           norm_err)
+    assert leaf <= GRAD_LEAF_TOL and every <= GRAD_ALL_TOL, (leaf, every,
+                                                             name)
+    return dict(loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+                worst_leaf_err=leaf, worst_leaf=name, worst_all_err=every,
+                launches=counts)
 
 
 # --------------------------------------------------------------------------
@@ -633,6 +901,108 @@ def profile_step(step, path: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 5: the train step at full width
+
+
+def run_train(dev, models) -> dict:
+    """ControlNet+LIEM fine-tune steps on the full-width models: the bf16
+    UNet+ControlNet of phase 3 as the compute copy, fp32 masters, remat,
+    TrainConfig() (frequency loss on), 8 frames on the 90x160 latent grid
+    built as the training CLI builds its batch. One warm-up step and three
+    timed ones; checks finiteness, a gradient at the ControlNet's conv_in,
+    moved masters, bit-identical frozen parameters and the launches of
+    each step."""
+    import statistics
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.diffusion import DiffusionTables, default_star_schedule
+    from star_tpu_torch.models.clip.tokenizer import default_tokenizer
+    from star_tpu_torch.train import (TrainConfig, make_train_state,
+                                      make_train_step)
+
+    unet, vae = models.unet, models.vae
+    g = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        # real runs start from converted non-zero weights; zero-init layers
+        # would stop every gradient short of the ControlNet's interior
+        for mod in unet.modules():
+            if getattr(mod, 'zero_init', False):
+                for p in mod.parameters(recurse=False):
+                    fan_in = p[0].numel() if p.ndim > 1 else 1
+                    p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                            * (0.1 / math.sqrt(fan_in)))
+        # the batch, as cli/train_sr.py builds it: a sampled latent for gt,
+        # the posterior mode for lq, the text through the tokenizer
+        gt, lq = (torch.rand(1, 8, 720, 1280, 3, generator=g, device=dev)
+                  * 2 - 1 for _ in range(2))
+        gt_lat = vae.encode(gt, generator=g)
+        lq_lat = vae.encode(lq, eps=torch.zeros(gt_lat.shape, device=dev))
+        tokens = torch.as_tensor(default_tokenizer(allow_fallback=True)(
+            ['a good video']), device=dev)
+        batch = {'gt_latent': gt_lat, 'lq_latent': lq_lat,
+                 'y': models.text(tokens), 'gt_pixels': gt}
+    unet.unet.remat = unet.controlnet.remat = True
+    cfg = TrainConfig()
+    state, tx = make_train_state(cfg, unet)
+    step = make_train_step(cfg, unet, DiffusionTables.from_schedule(
+        default_star_schedule(), dev), tx, vae_decode=vae.decode)
+    named = dict(unet.named_parameters())
+    frozen = {n: p.detach().clone() for n, p in named.items()
+              if n not in state.params}
+    masters0 = {n: m.clone() for n, m in state.params.items()}
+    log(f'train: {sum(m.numel() for m in masters0.values())} trainable '
+        f'(fp32 masters), {sum(p.numel() for p in frozen.values())} frozen '
+        f'(bf16) parameters; batch {tuple(gt_lat.shape)}')
+
+    m = step.loss_and_grads(batch, g)
+    conv_in = named['controlnet.conv_in.weight'].grad
+    assert conv_in is not None and float(conv_in.abs().max()) > 0, \
+        'no gradient reached the ControlNet conv_in'
+    log(f'loss_and_grads: total_loss {float(m["total_loss"]):.5f} '
+        f'grad_norm {float(m["grad_norm"]):.5f}; ControlNet conv_in '
+        f'gradient max {float(conv_in.abs().max()):.3e}')
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, per_step = [], []
+    for i in range(4):
+        ops.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch, g)
+        end.record()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ms = start.elapsed_time(end)
+        m = {k: float(v) for k, v in m.items()}
+        log(f'train step {i}{" (warm-up)" if i == 0 else ""}: {ms:.1f} ms; '
+            + ' '.join(f'{k} {v:.5f}' for k, v in m.items())
+            + f'; launches {counts}')
+        assert all(math.isfinite(v) for v in m.values()), m
+        assert m['grad_norm'] > 0, m
+        missing = [k for k in TRAIN_PATH_KERNELS if counts[k] <= 0]
+        assert not missing, f'kernels not launched in the train step: ' \
+            f'{missing}'
+        if i:
+            times.append(ms)
+            per_step.append(counts)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    moved = {n: float((state.params[n] - m0).abs().sum())
+             for n, m0 in masters0.items()}
+    assert sum(moved.values()) > 0 and moved['controlnet.conv_in.weight'] > 0
+    changed = [n for n, p in frozen.items() if not torch.equal(named[n], p)]
+    assert not changed, f'frozen parameters changed: {changed[:5]}'
+    step_ms = statistics.median(times)
+    log(f'train step [1, 8, 90x160, remat, frequency loss, bf16 + fp32 '
+        f'masters]: median {step_ms:.1f} ms of {[round(t, 1) for t in times]}'
+        f'; peak memory {peak_gb:.1f} GB; masters moved: '
+        f'{sum(v > 0 for v in moved.values())} of {len(moved)} leaves; '
+        f'frozen bit-identical: {len(frozen)} leaves')
+    return dict(step_ms=step_ms, steps_ms=times, peak_gb=peak_gb,
+                launches=per_step[-1], losses=m)
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -665,16 +1035,24 @@ def main() -> int:
         print(card)
         return 0
     small = check_small_models(dev)
+    small['train'] = check_small_train(dev)
     run = run_pipeline(dev)
     step = time_cfg_step(dev, run['models'], args.profile)
+    train = run_train(dev, run['models'])
     for name, rec in results.items():
-        rec['launches'] = run['launches'][name]
+        # each kernel's launches on the path it belongs to: the training
+        # forward and backward in the train step, the others in the clip
+        on_train = name in ('flash_packed_lse', 'flash_bwd')
+        rec['launches'] = (train if on_train else run)['launches'][name]
         rec['launches_per_cfg_step'] = step['launches'][name]
+        rec['launches_per_train_step'] = train['launches'][name]
     log('summary ' + json.dumps(dict(
         small_model_errors=small, clip_s=run['clip_s'],
         unet_calls=run['unet_calls'],
         stages=run['stages'], peak_gb=run['peak_gb'], cfg_step_ms=step['ms'],
-        profile=step.get('profile'))))
+        profile=step.get('profile'), train_step_ms=train['step_ms'],
+        train_steps_ms=train['steps_ms'], train_peak_gb=train['peak_gb'],
+        train_losses=train['losses'])))
     print(json.dumps({'kernels': list(results.values())}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -6,6 +6,12 @@
 //      output (row stride H*D, head offset h*64) — no head transpose.
 //   K2 `_flash_kernel` (via `_flash_fwd` / `flash_attention`), forward only:
 //      the SVD-VAE mid attention, one head of d=512 over [B, S, 1, 512].
+//   K2's `with_l` mode (the training forward of star_tpu's `_fwd`): the d=64
+//      kernel with an optional fp32 output `lse` [B*H, Sq]. The Pallas
+//      kernel saves its denominators l = sum exp2(s*c) under the fixed
+//      reference; this kernel saves the natural log-sum-exp m + log l of
+//      the max-subtracted softmax instead, which K3 (csrc/flash_bwd.cu)
+//      reads. A null `lse` is the inference path, unchanged.
 //
 // Softmax: max-subtracted online softmax in fp32 (log2 domain: the logits
 // are multiplied by c = scale*log2(e), or by 1 when q is prescaled). The
@@ -33,12 +39,11 @@
 // shared memory before the softmax.
 // Not yet used: wgmma, TMA, warp specialisation — later work for speed.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "mma_sm80.cuh"
+
+using fa2::bf16;
 
 // ---------------------------------------------------------------------------
 // d=64: register-resident flash attention on mma.sync m16n8k16
@@ -48,63 +53,16 @@ constexpr int D = 64, BQ = 64, BK = 64, THREADS = 128;
 constexpr int DP = D + 8;  // 144-byte rows: the 8 rows of an ldmatrix hit
                            // 8 different 16-byte bank groups
 constexpr int SMEM = (BQ + 4 * BK) * DP * 2;  // Q + 2 stages of K and V
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte global -> shared copy; zero-fills when !valid (src reads 0 bytes)
-__device__ __forceinline__ void cp16(bf16* s, const bf16* g, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(s)),
-               "l"(g), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr float LN2 = 0.6931471805599453f;
 }  // namespace fa2
 
 __global__ void __launch_bounds__(fa2::THREADS)
 flash_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                     int Sq, int kv_valid, long long q_bs, long long k_bs,
-                     long long v_bs, long long o_bs, int q_rs, int k_rs,
-                     int v_rs, int o_rs, float c) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int Sq, int kv_valid,
+                     long long q_bs, long long k_bs, long long v_bs,
+                     long long o_bs, int q_rs, int k_rs, int v_rs, int o_rs,
+                     float c) {
   using namespace fa2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ][DP]
@@ -259,6 +217,13 @@ flash_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (r1 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r1 * o_rs + col) =
           __floats2bfloat162_rn(acc[i][2] * i1, acc[i][3] * i1);
+  }
+  // training forward: the natural log-sum-exp of each row's logits,
+  // ln(sum exp(scale*qk)) = (m + log2 l) * ln2 in the log2 domain used here
+  if (lse != nullptr && t4 == 0) {
+    float* lb = lse + (long long)bh * Sq;
+    if (r0 < Sq) lb[r0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * LN2;
+    if (r1 < Sq) lb[r1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * LN2;
   }
 }
 
@@ -463,8 +428,10 @@ flash_fwd_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// lse: null, or fp32 [B*H, Sq] for the natural log-sum-exp of each row
 extern "C" int star_flash_fwd_d64(const void* q, const void* k, const void* v,
-                                  void* o, int B, int H, int Sq, int Sk,
+                                  void* o, void* lse, int B, int H, int Sq,
+                                  int Sk,
                                   int kv_valid, long long q_bs,
                                   long long k_bs, long long v_bs,
                                   long long o_bs, int q_rs, int k_rs, int v_rs,
@@ -473,8 +440,8 @@ extern "C" int star_flash_fwd_d64(const void* q, const void* k, const void* v,
   dim3 grid((Sq + fa2::BQ - 1) / fa2::BQ, B * H);
   flash_fwd_d64_kernel<<<grid, fa2::THREADS, fa2::SMEM,
                          (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, Sq,
-      kv_valid, q_bs, k_bs, v_bs, o_bs, q_rs, k_rs, v_rs, o_rs, c);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      H, Sq, kv_valid, q_bs, k_bs, v_bs, o_bs, q_rs, k_rs, v_rs, o_rs, c);
   return (int)cudaGetLastError();
 }
 

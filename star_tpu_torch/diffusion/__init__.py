@@ -1,6 +1,6 @@
 from .schedules import (Schedule, noise_schedule, default_star_schedule,
                         karras_schedule, build_sigma_ladder,
                         trailing_timesteps, t_to_sigma, sigma_to_t)
-from .gaussian import (DiffusionTables, diffuse, denoise_to_x0,
-                       guide_rescale_combine)
+from .gaussian import (DiffusionTables, diffuse, denoise_to_x0, get_velocity,
+                       get_x0, guide_rescale_combine)
 from .solvers import sample_dpmpp_2m_sde, sample_heun

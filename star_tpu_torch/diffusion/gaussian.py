@@ -49,6 +49,22 @@ def diffuse(tables: DiffusionTables, x0: torch.Tensor, t: torch.Tensor,
     return a * x0 + s * noise
 
 
+def get_velocity(tables: DiffusionTables, x0: torch.Tensor, xt: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+    """The v-prediction target (alpha_t * xt - x0) / sigma_t."""
+    a = _bcast(tables.alphas, t, xt).to(xt.dtype)
+    s = _bcast(tables.sigmas, t, xt).to(xt.dtype)
+    return (a * xt - x0) / s
+
+
+def get_x0(tables: DiffusionTables, v: torch.Tensor, xt: torch.Tensor,
+           t: torch.Tensor) -> torch.Tensor:
+    """x0 from a v prediction: alpha_t * xt - sigma_t * v."""
+    a = _bcast(tables.alphas, t, xt).to(xt.dtype)
+    s = _bcast(tables.sigmas, t, xt).to(xt.dtype)
+    return a * xt - s * v
+
+
 def guide_rescale_combine(y_out: torch.Tensor, u_out: torch.Tensor,
                           guide_scale: float,
                           guide_rescale: float | None) -> torch.Tensor:

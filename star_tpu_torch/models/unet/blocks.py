@@ -6,7 +6,8 @@ temporal stream [B, F, H*W, C]. Attention goes through ops.attention
 (flash kernel K1 for long self-attention, plain for the text
 cross-attention), frame attention through K4, and the temporal conv chain
 through the fused GN+SiLU+tconv kernel K5 with threaded statistics.
-Inference only: dropout is the identity.
+Dropout is not ported: the blocks run the deterministic mode, the one
+inference and training (`deterministic=True`) take.
 """
 
 from __future__ import annotations

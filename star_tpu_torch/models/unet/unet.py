@@ -10,6 +10,13 @@ cfg_pair: x/t/hint carry one copy of a CFG pair while y carries both
 halves ([2B, ...]). The two streams are identical until the first text
 cross-attention, so everything before it runs at batch B and is tiled at
 that point (skip taps and control residuals included).
+
+remat (training): under grad, each ResBlock, SpatialTransformer and
+TemporalTransformer runs under torch.utils.checkpoint, which keeps only
+its inputs and recomputes it in the backward, as the JAX package wraps the
+same blocks in nn.remat. Dropout is not ported: the forward takes
+`deterministic=True` (the only mode training uses) and raises on
+`deterministic=False` while dropout > 0.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..layers import Conv2d, GroupNorm, zero_
 from .blocks import (Downsample, ResBlock, SpatialTransformer,
@@ -36,9 +44,11 @@ class VideoUNetTrunk(nn.Module):
                  num_res_blocks: int = 2,
                  attn_scales: Sequence[float] = (1.0, 0.5, 0.25),
                  head_dim: int = 64, num_heads_init_temporal: int = 8,
-                 context_dim: int = 1024, is_controlnet: bool = False):
+                 context_dim: int = 1024, dropout: float = 0.1,
+                 is_controlnet: bool = False, remat: bool = False):
         super().__init__()
         self.dim, self.head_dim = dim, head_dim
+        self.dropout, self.remat = dropout, remat
         self.dim_mult = tuple(dim_mult)
         self.num_res_blocks = num_res_blocks
         self.attn_scales = tuple(attn_scales)
@@ -103,7 +113,11 @@ class VideoUNetTrunk(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
                 hint: Optional[torch.Tensor] = None,
                 controls: Optional[Tuple[torch.Tensor, ...]] = None,
-                cfg_pair: bool = False):
+                cfg_pair: bool = False, deterministic: bool = True):
+        if not deterministic and self.dropout > 0:
+            raise NotImplementedError(
+                'dropout (deterministic=False) is not ported; see ROADMAP.md '
+                'section 1, item 4 (UNet + ControlNet)')
         b, f, hh, ww, cin = x.shape
         dtype = self.conv_in.weight.dtype
         w1, w2 = self.time_embed_1, self.time_embed_2
@@ -118,21 +132,27 @@ class VideoUNetTrunk(nn.Module):
 
         xs = []
         state = {'split_pending': cfg_pair, 'e': e}
+        remat = self.remat and torch.is_grad_enabled()
+
+        def run(mod, *args):
+            if remat:
+                return checkpoint(mod, *args, use_reentrant=False)
+            return mod(*args)
 
         def run_spatial(name, x):
             mod = getattr(self, name)
             if state['split_pending']:
-                x = mod(x, context, True)
+                x = run(mod, x, context, True)
                 # the pair diverges here: everything downstream runs at 2B
                 state['split_pending'] = False
                 state['e'] = torch.cat([state['e'], state['e']], dim=0)
                 xs[:] = [torch.cat([s, s], dim=0) for s in xs]
                 return x
-            return mod(x, context, False)
+            return run(mod, x, context, False)
 
         def run_temporal(name, x):
             bf = x.shape[0]
-            x5 = getattr(self, name)(x.reshape(-1, f, *x.shape[1:]))
+            x5 = run(getattr(self, name), x.reshape(-1, f, *x.shape[1:]))
             return x5.reshape(bf, *x.shape[1:])
 
         def tap(xcur):
@@ -151,7 +171,7 @@ class VideoUNetTrunk(nn.Module):
         scale = 1.0
         for i in range(len(self.dim_mult)):
             for j in range(self.num_res_blocks):
-                x = getattr(self, f'enc_{i}_{j}_res')(x, state['e'], f)
+                x = run(getattr(self, f'enc_{i}_{j}_res'), x, state['e'], f)
                 if scale in self.attn_scales:
                     x = run_spatial(f'enc_{i}_{j}_spatial', x)
                     x = run_temporal(f'enc_{i}_{j}_temporal', x)
@@ -161,10 +181,10 @@ class VideoUNetTrunk(nn.Module):
                 scale /= 2.0
                 tap(x)
 
-        x = self.mid_res1(x, state['e'], f)
+        x = run(self.mid_res1, x, state['e'], f)
         x = run_spatial('mid_spatial', x)
         x = run_temporal('mid_temporal', x)
-        x = self.mid_res2(x, state['e'], f)
+        x = run(self.mid_res2, x, state['e'], f)
 
         if self.is_controlnet:
             xs.append(self.middle_out(x))
@@ -179,7 +199,7 @@ class VideoUNetTrunk(nn.Module):
                 if controls_list is not None:
                     skip = skip + controls_list.pop().to(dtype)
                 x = torch.cat([x, skip], dim=-1)
-                x = getattr(self, f'dec_{i}_{j}_res')(x, state['e'], f)
+                x = run(getattr(self, f'dec_{i}_{j}_res'), x, state['e'], f)
                 if scale in self.attn_scales:
                     x = run_spatial(f'dec_{i}_{j}_spatial', x)
                     x = run_temporal(f'dec_{i}_{j}_temporal', x)
@@ -196,21 +216,25 @@ class VideoUNetTrunk(nn.Module):
 class ControlledV2VUNet(nn.Module):
     """UNet + video ControlNet; hint is the LQ latent.
     forward(x, t, y, hint) -> v-prediction [B, F, H, W, 4] ([2B, ...] with
-    cfg_pair, in y's half order)."""
+    cfg_pair, in y's half order). `remat` is the flag of both trunks."""
 
     def __init__(self, dim: int = 320, dim_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2,
                  attn_scales: Sequence[float] = (1.0, 0.5, 0.25),
                  head_dim: int = 64, num_heads_init_temporal: int = 8,
-                 context_dim: int = 1024):
+                 context_dim: int = 1024, dropout: float = 0.1,
+                 remat: bool = False):
         super().__init__()
         kw = dict(dim=dim, dim_mult=dim_mult, num_res_blocks=num_res_blocks,
                   attn_scales=attn_scales, head_dim=head_dim,
                   num_heads_init_temporal=num_heads_init_temporal,
-                  context_dim=context_dim)
+                  context_dim=context_dim, dropout=dropout, remat=remat)
         self.unet = VideoUNetTrunk(**kw)
         self.controlnet = VideoUNetTrunk(is_controlnet=True, **kw)
 
-    def forward(self, x, t, y, hint, cfg_pair: bool = False):
-        controls = self.controlnet(x, t, y, hint=hint, cfg_pair=cfg_pair)
-        return self.unet(x, t, y, controls=controls, cfg_pair=cfg_pair)
+    def forward(self, x, t, y, hint, cfg_pair: bool = False,
+                deterministic: bool = True):
+        controls = self.controlnet(x, t, y, hint=hint, cfg_pair=cfg_pair,
+                                   deterministic=deterministic)
+        return self.unet(x, t, y, controls=controls, cfg_pair=cfg_pair,
+                         deterministic=deterministic)

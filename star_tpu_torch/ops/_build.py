@@ -36,12 +36,18 @@ Fl = ctypes.c_float
 
 # C signatures of the entry points in csrc/ (all return cudaError_t as int)
 _SIGNATURES = {
+    # q, k, v, o, lse (or null), B, H, Sq, Sk, kv_valid, q/k/v/o batch
+    # strides, q/k/v/o row strides, c (= scale*log2e), stream
+    'star_flash_fwd_d64': [P, P, P, P, P, I, I, I, I, I, L, L, L, L,
+                           I, I, I, I, Fl, P],
     # q, k, v, o, B, H, Sq, Sk, kv_valid, q/k/v/o batch strides,
     # q/k/v/o row strides, c (= scale*log2e), stream
-    'star_flash_fwd_d64': [P, P, P, P, I, I, I, I, I, L, L, L, L,
-                           I, I, I, I, Fl, P],
     'star_flash_fwd_d512': [P, P, P, P, I, I, I, I, I, L, L, L, L,
                             I, I, I, I, Fl, P],
+    # q, k, v, dout, lse, dvec, dq, dk, dv, B, H, Sq, Sk, kv_valid,
+    # q-side / k-side batch strides, row stride, scale, stream
+    'star_flash_bwd_d64': [P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L,
+                           I, Fl, P],
     # q, k, v, o, B, F, N, H, scale, stream
     'star_temporal_attention': [P, P, P, P, I, I, I, I, Fl, P],
     # x, a, b, w, bias, residual, out, sum, sumsq, B, F, N, C, Cout,
@@ -142,3 +148,20 @@ def stream_ptr(device) -> int:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f'{name}: CUDA launch failed with error {err}')
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and an input requires grad: the call is recorded."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """For the kernels that have no backward (K2 d=512, K6, K7, K8): raise
+    rather than return a result cut off from autograd when grad mode is on
+    and an input requires grad."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f'{name} has no backward kernel: call it under '
+                           'torch.no_grad() or on inputs that do not '
+                           'require grad')

@@ -10,7 +10,9 @@ are multiples of 128 — the shapes the JAX package's default configuration
 sends to its Pallas kernels (the direct and H-Winograd forms; the 2-D
 Winograd form computes the same function) — that is csrc/conv3x3.cu; every
 other shape, and every CPU tensor, runs the plain version `conv3x3_plain`,
-as the JAX package leaves the other shapes to XLA.
+as the JAX package leaves the other shapes to XLA. The kernel has no
+backward (the VAE is never differentiated): under grad, with an input that
+requires grad, its launcher raises.
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ def _launch(x, a, b, weight, bias, residual, want_stats):
     """Launch csrc/conv3x3.cu. The [Cout, 3, 3, C] bf16 weight layout it
     reads (K contiguous) is made here on every call."""
     global LAUNCHES
+    _build.refuse_grad('star_conv3x3', x, a, b, weight, bias, residual)
     n, h, w, c = x.shape
     cout = weight.shape[0]
     if not x.is_cuda or x.dtype != torch.bfloat16 \

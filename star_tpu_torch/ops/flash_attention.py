@@ -1,4 +1,4 @@
-"""Flash attention forward: kernels K1 and K2
+"""Flash attention: kernels K1, K2 and K3
 (counterpart of star_tpu/ops/flash_attention.py).
 
   K1 `flash_attention_packed`: q/k/v [B, S, H*D] natural layout, d=64,
@@ -6,11 +6,19 @@
      spatial self-attention (Pallas `_flash_packed_kernel`).
   K2 `flash_attention`: q/k/v [B, S, H, D], here d=512 single head — the
      SVD-VAE mid attention (Pallas `_flash_kernel`, forward).
+  K2 `with_l` and K3, the training path of d=64 attention (both entry
+     points): when grad mode is on and an input requires grad, the
+     forward is the d=64 kernel writing the natural log-sum-exp of each
+     row (`lse` [B, H, Sq]) and the backward is csrc/flash_bwd.cu, the
+     recompute backward (Pallas `_flash_bwd`). The JAX package saves the
+     fixed-reference denominators l instead; the gradient is the same
+     function.
 
-Both run the CUDA kernel in csrc/flash_fwd.cu for a CUDA tensor (or raise
-if it does not take the input), and the plain PyTorch version for a CPU
-tensor. The plain version is the JAX package's `_xla_reference`: fp32
-logits, fp32 softmax, probabilities in the input dtype, fp32 accumulation.
+Every kernel runs for a CUDA tensor (or raises if it does not take the
+input), and its plain PyTorch version for a CPU tensor. The plain forward
+is the JAX package's `_xla_reference`: fp32 logits, fp32 softmax,
+probabilities in the input dtype, fp32 accumulation. K2 at d=512 has no
+backward: under grad its launcher raises.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -26,38 +35,75 @@ LN2 = 0.6931471805599453
 
 # launches of each kernel (plain ints; chip_smoke.py resets and reads them)
 PACKED_LAUNCHES = 0   # K1, d=64
+LSE_LAUNCHES = 0      # K2 `with_l`: the d=64 forward writing the lse
 D512_LAUNCHES = 0     # K2, d=512
+BWD_LAUNCHES = 0      # K3, d=64
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+                    scale: float, return_lse: bool = False):
     """[B, Sq, H, D] x [B, Sk, H, D] -> [B, Sq, H, D] through materialised
-    fp32 logits (the reference every flash kernel is held to)."""
+    fp32 logits (the reference every flash kernel is held to); with
+    `return_lse` also the natural log-sum-exp of the logits [B, H, Sq]."""
     logits = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) * scale
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum('bhqk,bkhd->bqhd', probs.float(), v.float())
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
 
 
 def flash_attention_packed_plain(q, k, v, num_heads, scale, kv_valid=None,
-                                 prescaled=False):
+                                 prescaled=False, return_lse=False):
     b, s, c = q.shape
     d = c // num_heads
     kv = k.shape[1] if kv_valid is None else min(kv_valid, k.shape[1])
     to4 = lambda t: t.reshape(t.shape[0], t.shape[1], num_heads, d)
     # a prescaled q carries scale*log2(e): logits*ln2 are natural-log logits
-    out = attention_plain(to4(q), to4(k[:, :kv]), to4(v[:, :kv]),
-                          LN2 if prescaled else scale)
-    return out.reshape(b, s, c)
+    res = attention_plain(to4(q), to4(k[:, :kv]), to4(v[:, :kv]),
+                          LN2 if prescaled else scale, return_lse)
+    if return_lse:
+        return res[0].reshape(b, s, c), res[1]
+    return res.reshape(b, s, c)
 
 
-def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int):
+def flash_bwd_plain(q, k, v, o, lse, do, num_heads: int, scale: float):
+    """K3's plain version. q/o/do [B, Sq, H*D], k/v [B, Sk, H*D] (already
+    cut to the live keys), lse [B, H, Sq] natural, `scale` natural (ln 2
+    for a prescaled q) -> (dq, dk, dv) in q's dtype and layout:
+    P = exp(scale q k^T - lse), D = rowsum(dO o), dS = P (dO v^T - D);
+    P and dS rounded to q.dtype before dV = P^T dO, dK = scale dS^T q,
+    dQ = scale dS k, each accumulated in fp32. Heads and batch rows are
+    independent, so it can run on any slice of them (chip_smoke.py runs it
+    one (batch, head) at a time at 14400 tokens)."""
+    b, sq, c = q.shape
+    d = c // num_heads
+    to4 = lambda t: t.reshape(t.shape[0], t.shape[1], num_heads, d).float()
+    q4, k4, v4, o4, g4 = map(to4, (q, k, v, o, do))
+    logits = torch.einsum('bqhd,bkhd->bhqk', q4, k4) * scale
+    p = torch.exp(logits - lse.float()[..., None])
+    dp = torch.einsum('bqhd,bkhd->bhqk', g4, v4)
+    dvec = (g4 * o4).sum(-1).transpose(1, 2)[..., None]      # [B, H, Sq, 1]
+    ds = p * (dp - dvec)
+    p = p.to(q.dtype).float()
+    ds = ds.to(q.dtype).float()
+    dv = torch.einsum('bhqk,bqhd->bkhd', p, g4)
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds, q4) * scale
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds, k4) * scale
+    flat = lambda t: t.reshape(t.shape[0], t.shape[1], c).to(q.dtype)
+    return flat(dq), flat(dk), flat(dv)
+
+
+def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
+            want_lse: bool = False):
     """Launch csrc/flash_fwd.cu on q/k/v whose rows are [S, heads*d] with
-    head h at column h*d; returns the output in q's layout."""
-    global PACKED_LAUNCHES, D512_LAUNCHES
+    head h at column h*d; returns the output in q's layout (and with
+    `want_lse`, d=64 only, the fp32 log-sum-exp [B, heads, Sq])."""
+    global PACKED_LAUNCHES, LSE_LAUNCHES, D512_LAUNCHES
     name = {64: 'star_flash_fwd_d64', 512: 'star_flash_fwd_d512'}.get(d)
-    if name is None:
-        raise ValueError(f'flash kernel takes head_dim 64 or 512, not {d}')
+    if name is None or (want_lse and d != 64):
+        raise ValueError(f'flash kernel takes head_dim 64 or 512 (lse: 64 '
+                         f'only), not {d}')
+    _build.refuse_grad(name, q, k, v)
     for t in (q, k, v):
         if not t.is_cuda or t.dtype != torch.bfloat16:
             raise ValueError('flash kernel takes bf16 CUDA tensors, got '
@@ -73,17 +119,97 @@ def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int):
     sk = k.shape[1]
     row = heads * d
     out = torch.empty_like(q)
+    strides = (bsz, heads, sq, sk, max(0, min(kv_valid, sk)),
+               sq * row, sk * row, sk * row, sq * row, row, row, row, row,
+               float(c), _build.stream_ptr(q.device))
     fn = getattr(_build.lib(), name)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             bsz, heads, sq, sk, max(0, min(kv_valid, sk)),
-             sq * row, sk * row, sk * row, sq * row, row, row, row, row,
-             float(c), _build.stream_ptr(q.device))
-    _build.check(err, name)
     if d == 64:
-        PACKED_LAUNCHES += 1
+        lse = (torch.empty((bsz, heads, sq), dtype=torch.float32,
+                           device=q.device) if want_lse else None)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), *strides)
     else:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 *strides)
+    _build.check(err, name)
+    if d == 512:
         D512_LAUNCHES += 1
+    elif want_lse:
+        LSE_LAUNCHES += 1
+        return out, lse
+    else:
+        PACKED_LAUNCHES += 1
     return out
+
+
+def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float,
+                kv_valid: int):
+    """Launch csrc/flash_bwd.cu (K3); q/o/do [B, Sq, H*64], k/v
+    [B, Sk, H*64], lse [B, H, Sq] fp32. Key rows >= kv_valid get zero
+    gradients."""
+    global BWD_LAUNCHES
+    bsz, sq, c = q.shape
+    sk = k.shape[1]
+    if c != heads * 64:
+        raise ValueError(f'flash backward kernel takes head_dim 64, got '
+                         f'{c} channels in {heads} heads')
+    for t in (q, k, v, o, do):
+        if not t.is_cuda or t.dtype != torch.bfloat16 \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError('flash backward kernel takes contiguous '
+                             '16-byte aligned bf16 CUDA tensors')
+    if k.shape != v.shape or k.shape[0] != bsz or k.shape[2] != c \
+            or o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (bsz, heads, sq):
+        raise ValueError(f'flash backward kernel: q {tuple(q.shape)} k '
+                         f'{tuple(k.shape)} lse {tuple(lse.shape)}')
+    kv = max(0, min(kv_valid, sk))
+    dvec = (do.float() * o.float()).view(bsz, sq, heads, 64).sum(-1)
+    dvec = dvec.transpose(1, 2).contiguous()                 # [B, H, Sq]
+    lse = lse.float().contiguous()
+    dq = torch.empty_like(q)
+    zero_tail = torch.zeros_like if kv < sk else torch.empty_like
+    dk, dv = zero_tail(k), zero_tail(v)
+    err = _build.lib().star_flash_bwd_d64(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bsz, heads, sq, sk, kv, sq * c, sk * c, c,
+        float(scale), _build.stream_ptr(q.device))
+    _build.check(err, 'star_flash_bwd_d64')
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _FlashAttentionD64(torch.autograd.Function):
+    """Packed d=64 attention under autograd: K2 `with_l` forward (saves q,
+    k, v, o and the lse), K3 backward; their plain versions for CPU
+    tensors. `scale` is the natural one (ln 2 for a prescaled q)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float, kv_valid: int):
+        if q.is_cuda:
+            out, lse = _launch(q, k, v, num_heads, q.shape[-1] // num_heads,
+                               scale * LOG2E, kv_valid, want_lse=True)
+        else:
+            out, lse = flash_attention_packed_plain(
+                q, k, v, num_heads, scale, kv_valid, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads, ctx.scale, ctx.kv_valid = num_heads, scale, kv_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        h, s, kv = ctx.num_heads, ctx.scale, ctx.kv_valid
+        if q.is_cuda:
+            dq, dk, dv = _launch_bwd(q, k, v, out, lse, do.contiguous(), h,
+                                     s, kv)
+        else:   # dead key rows carry no gradient
+            dq, dk, dv = flash_bwd_plain(q, k[:, :kv], v[:, :kv], out, lse,
+                                         do, h, s)
+            pad = (0, 0, 0, k.shape[1] - dk.shape[1])
+            dk, dv = F.pad(dk, pad), F.pad(dv, pad)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,11 +218,14 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            prescaled: bool = False) -> torch.Tensor:
     """K1. q/k/v [B, S, H*D] -> [B, S, H*D], non-causal softmax attention
     per head; keys >= kv_valid get no weight; with `prescaled` q already
-    carries scale*log2(e)."""
+    carries scale*log2(e). Differentiable: under grad, K2 `with_l` + K3."""
     d = q.shape[-1] // num_heads
     s = (1.0 / math.sqrt(d)) if scale is None else scale
+    kv = k.shape[1] if kv_valid is None else min(kv_valid, k.shape[1])
+    if _build.needs_grad(q, k, v):
+        return _FlashAttentionD64.apply(q, k, v, num_heads,
+                                        LN2 if prescaled else s, kv)
     if q.is_cuda:
-        kv = k.shape[1] if kv_valid is None else kv_valid
         return _launch(q, k, v, num_heads, d,
                        1.0 if prescaled else s * LOG2E, kv)
     return flash_attention_packed_plain(q, k, v, num_heads, s, kv_valid,
@@ -105,9 +234,16 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
-    """K2. q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D]."""
+    """K2. q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D].
+    Differentiable at d=64 (K2 `with_l` + K3) and on the CPU; the d=512
+    kernel raises under grad."""
     b, sq, h, d = q.shape
     s = (1.0 / math.sqrt(d)) if scale is None else scale
+    if _build.needs_grad(q, k, v) and (d == 64 or not q.is_cuda):
+        flat = lambda t: t.reshape(t.shape[0], t.shape[1], h * d)
+        out = _FlashAttentionD64.apply(flat(q), flat(k), flat(v), h, s,
+                                       k.shape[1])
+        return out.reshape(b, sq, h, d)
     if q.is_cuda:
         return _launch(q, k, v, h, d, s * LOG2E, k.shape[1])
     return attention_plain(q, k, v, s)

@@ -18,7 +18,9 @@ weights (`phase_weights`, in fp32, rounded once to the input dtype):
      statistics, csrc/interleave2x2.cu for a CUDA tensor.
 
 A CPU tensor runs the plain versions: the phase convs and
-`interleave2x2_plain` (stack + reshape + channel_stats).
+`interleave2x2_plain` (stack + reshape + channel_stats). Neither kernel has
+a backward: under grad, with an input that requires grad, their launchers
+raise.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ def interleave2x2_plain(p00, p01, p10, p11, want_stats=False):
 
 def _launch_interleave(p00, p01, p10, p11, want_stats):
     global INTERLEAVE_LAUNCHES
+    _build.refuse_grad('star_interleave2x2', p00, p01, p10, p11)
     n, h, w, c = p00.shape
     for p in (p00, p01, p10, p11):
         if not p.is_cuda or p.dtype != torch.bfloat16 \
@@ -116,6 +119,7 @@ def _launch_upsample(x, k_rs, bias, want_stats):
     """Launch csrc/upsample_conv.cu. The [4, Cout, 2, 2, C] bf16 weight
     layout it reads (K contiguous per phase) is made here on every call."""
     global UPSAMPLE_LAUNCHES
+    _build.refuse_grad('star_upsample_conv2x', x, k_rs, bias)
     n, h, w, c = x.shape
     cout = k_rs.shape[-1]
     if not x.is_cuda or x.dtype != torch.bfloat16 \

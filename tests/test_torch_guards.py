@@ -5,6 +5,11 @@
   * the entry points raise without a CUDA card unless given device="cpu";
   * a CUDA tensor never reaches a kernel's plain version: each wrapper
     launches (here a counting stand-in for the launcher) or raises;
+  * under autograd the differentiable kernels launch forward and backward
+    (K2 `with_l` then K3; K4 and K5 launch forward and recompute their
+    plain version only inside the backward), and the kernels with no
+    backward (K2 d=512, K6, K7, K8) raise instead of returning a result
+    cut off from autograd;
   * tests that need the card run there and skip here.
 """
 
@@ -72,8 +77,8 @@ class FakeCuda(torch.Tensor):
         return True
 
 
-def _fake(x):
-    return torch.Tensor._make_subclass(FakeCuda, x)
+def _fake(x, requires_grad=False):
+    return torch.Tensor._make_subclass(FakeCuda, x, requires_grad)
 
 
 def _refuse(*a, **k):
@@ -98,6 +103,7 @@ def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
         return launch
     for mod, plain in ((fa, 'attention_plain'),
                        (fa, 'flash_attention_packed_plain'),
+                       (fa, 'flash_bwd_plain'),
                        (ta, 'temporal_attention_plain'),
                        (ftc, 'tconv3_plain'),
                        (c3, 'conv3x3_plain'),
@@ -139,6 +145,109 @@ def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
                                  torch.zeros(3, 1, 64, 64), torch.zeros(64),
                                  want_stats=True)
     assert launched == [name]
+
+
+@pytest.mark.parametrize('name', ['packed', 'd64', 'temporal', 'tconv'])
+def test_differentiable_kernels_launch_forward_and_backward(monkeypatch,
+                                                            name):
+    """A recorded call on CUDA tensors: K1/K2-d64 launch the lse forward
+    and K3 (flash_bwd_plain never runs); K4 and K5 launch their forward
+    and run their plain version only inside the backward (the recompute
+    the JAX package also does), K5 through threaded statistics."""
+    fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
+    ta = importlib.import_module('star_tpu_torch.ops.temporal_attention')
+    ftc = importlib.import_module('star_tpu_torch.ops.fused_temporal_conv')
+    events, phase = [], ['forward']
+
+    def launch_fwd(q, k, v, heads, d, c, kv_valid, want_lse=False):
+        events.append(('flash_fwd', want_lse))
+        return torch.zeros_like(q), torch.zeros(q.shape[0], heads,
+                                                q.shape[1])
+
+    def launch_bwd(q, k, v, o, lse, do, heads, scale, kv_valid):
+        events.append(('flash_bwd', q.is_cuda))
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+
+    def in_backward(mod, plain):
+        real = getattr(mod, plain)
+
+        def run(*a, **k):
+            assert phase[0] == 'backward', f'{plain} ran in the forward'
+            events.append((plain, 'backward'))
+            return real(*a, **k)
+        monkeypatch.setattr(mod, plain, run)
+
+    for mod, plain in ((fa, 'attention_plain'),
+                       (fa, 'flash_attention_packed_plain'),
+                       (fa, 'flash_bwd_plain')):
+        monkeypatch.setattr(mod, plain, _refuse)
+    monkeypatch.setattr(fa, '_launch', launch_fwd)
+    monkeypatch.setattr(fa, '_launch_bwd', launch_bwd)
+    monkeypatch.setattr(ta, '_launch', lambda q, *a: (
+        events.append(('temporal_fwd',)), torch.zeros_like(q))[1])
+    monkeypatch.setattr(ftc, '_launch', lambda x, a, b, k3, bias, res, ws,
+                        pf: (events.append(('tconv_fwd', ws)),
+                             (_fake(torch.zeros(*x.shape[:3], k3.shape[-1])),
+                              (torch.ones(x.shape[0], k3.shape[-1]),) * 2
+                              if ws else None))[1])
+    in_backward(ta, 'temporal_attention_plain')
+    in_backward(ftc, 'tconv3_plain')
+    leaf = lambda *shape: _fake(torch.randn(*shape), requires_grad=True)
+    if name == 'packed':
+        q, k, v = (leaf(1, 8, 128) for _ in range(3))
+        out = fa.flash_attention_packed(q, k, v, 2, kv_valid=6)
+        inputs = (q, k, v)
+        want = [('flash_fwd', True), ('flash_bwd', True)]
+    elif name == 'd64':
+        q, k, v = (leaf(1, 8, 2, 64) for _ in range(3))
+        out = fa.flash_attention(q, k, v)
+        inputs = (q, k, v)
+        want = [('flash_fwd', True), ('flash_bwd', True)]
+    elif name == 'temporal':
+        q, k, v = (leaf(1, 4, 8, 64) for _ in range(3))
+        out = ta.temporal_attention(q, k, v, 1)
+        inputs = (q, k, v)
+        want = [('temporal_fwd',), ('temporal_attention_plain', 'backward')]
+    else:
+        x = leaf(1, 4, 8, 64)
+        w = torch.zeros(3, 1, 64, 64, requires_grad=True)
+        y, st = ftc.fused_gn_silu_tconv3(x, torch.ones(64), torch.zeros(64),
+                                         w, torch.zeros(64), want_stats=True)
+        out, _ = ftc.fused_gn_silu_tconv3(y, torch.ones(64), torch.zeros(64),
+                                          w, torch.zeros(64), stats=st)
+        want = [('tconv_fwd', True), ('tconv_fwd', False),
+                ('tconv3_plain', 'backward'), ('tconv3_plain', 'backward')]
+        inputs = (x, w)
+    phase[0] = 'backward'
+    grads = torch.autograd.grad(out.float().sum(), inputs)
+    assert events == want
+    assert all(g.shape == a.shape for g, a in zip(grads, inputs))
+
+
+@pytest.mark.parametrize('case', ['d512', 'conv3x3', 'upsample_conv2x',
+                                  'interleave2x2'])
+def test_kernels_without_backward_refuse_grad(case):
+    """K2 d=512, K6, K7 and K8 on CUDA tensors that require grad, with grad
+    mode on: the launcher raises before building anything."""
+    fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
+    c3 = importlib.import_module('star_tpu_torch.ops.conv3x3')
+    uc = importlib.import_module('star_tpu_torch.ops.upsample_conv')
+    bf = lambda *s: _fake(torch.zeros(*s, dtype=torch.bfloat16), True)
+    with pytest.raises(RuntimeError, match='no backward kernel'):
+        if case == 'd512':
+            q = bf(1, 8, 1, 512)
+            fa.flash_attention(q, q, q)
+        elif case == 'conv3x3':
+            c3.fused_gn_silu_conv3x3(bf(1, 5, 8, 128), torch.ones(128),
+                                     torch.zeros(128),
+                                     torch.zeros(128, 128, 3, 3),
+                                     torch.zeros(128))
+        elif case == 'upsample_conv2x':
+            uc.upsample_conv2x(bf(1, 3, 4, 64), torch.zeros(128, 64, 3, 3),
+                               torch.zeros(128))
+        else:
+            p = bf(1, 4, 8, 16)
+            uc.interleave2x2(p, p, p, p)
 
 
 def test_launchers_refuse_what_the_kernels_do_not_take():
@@ -324,3 +433,20 @@ def test_kernels_match_plain_versions_on_the_card():
     y, sty = uc.interleave2x2(*ps, want_stats=True)
     yr, str_ = uc.interleave2x2_plain(*ps, want_stats=True)
     assert torch.equal(y, yr) and stats_agree(sty, str_)
+    # K2 `with_l` (output and lse) and K3: ragged S, 5 heads, a dead kv
+    # tail whose dk/dv stay zero; lse within 1e-3 (natural log units)
+    q, do = bf(2, 200, 320), bf(2, 200, 320)
+    k, v = bf(2, 230, 320), bf(2, 230, 320)
+    o, lse = fa._launch(q, k, v, 5, 64, 0.125 * fa.LOG2E, 210,
+                        want_lse=True)
+    o_ref, lse_ref = fa.flash_attention_packed_plain(q, k, v, 5, 0.125, 210,
+                                                     return_lse=True)
+    assert agree(o, o_ref)
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    got = fa._launch_bwd(q, k, v, o, lse, do, 5, 0.125, 210)
+    want = fa.flash_bwd_plain(q, k[:, :210], v[:, :210], o, lse, do, 5,
+                              0.125)
+    assert agree(got[0], want[0])
+    for g_, w_ in zip(got[1:], want[1:]):
+        assert agree(g_[:, :210], w_)
+        assert float(g_[:, 210:].abs().max()) == 0.0

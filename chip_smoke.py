@@ -7,12 +7,15 @@
 2. holds each kernel (K1 packed flash, K2 d=512 flash, K2 `with_l` (the
    d=64 training forward writing the log-sum-exp), K3 flash backward, K4
    frame attention, K5 fused GN+SiLU+temporal conv, K6 fused GN+SiLU+3x3
-   conv, K7 fused nearest-2x+3x3 conv, K8 2x2 phase interleave) against
-   its plain PyTorch version at the shapes the main paths give it, and
-   times kernel, plain version and one PyTorch library call with CUDA
-   events; then runs a small-width UNet+ControlNet and VAE on the card
-   (bf16, kernels) against the same weights on the host (fp32, plain
-   versions), and the small UNet+ControlNet's `loss_and_grads` likewise;
+   conv, K7 fused nearest-2x+3x3 conv, K8 2x2 phase interleave, K9 fused
+   qk-LayerNorm+RoPE; K1 also at the CogVideoX DiT's 48 heads, 9680
+   tokens, dead key tail and prescaled q) against its plain PyTorch
+   version at the shapes the main paths give it, and times kernel, plain
+   version and one PyTorch library call with CUDA events; then runs a
+   small-width UNet+ControlNet and VAE, and a small CogVideoX DiT and
+   causal VAE, on the card (bf16, kernels) against the same weights on the
+   host (fp32, plain versions), and the small UNet+ControlNet's
+   `loss_and_grads` likewise;
 3. builds the full-width models with seeded random bf16 weights on the card
    and runs STARPipeline.enhance_a_video on 8 frames of 180x320 -> 720x1280,
    with every kernel's launch count reset just before and read just after;
@@ -24,7 +27,12 @@
    pixels, hash-tokenised text) of 8 frames on the 90x160 latent grid; one
    warm-up step and three timed steps through make_train_step, with the
    launch counts reset before and read after each step;
-6. prints one JSON line of kernel results, the card line, and as the last
+6. frees the I2VGen models, builds the CogVideoX-5B SR models (42-layer
+   DiT, T5-XXL, causal VAE) with seeded random bf16 weights on the card
+   and runs CogVideoSRPipeline.enhance_a_video on 25 frames of 480x720 (50
+   DiT calls), the launch counts reset just before and read just after;
+   then times one DiT CFG step at tools/bench_cog.py's shape;
+7. prints one JSON line of kernel results, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line is printed. Without a CUDA
@@ -34,6 +42,7 @@ card, or without the star_tpu_torch package beside it, it fails.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -44,6 +53,9 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 MAIN_PATH_KERNELS = ('flash_packed', 'flash_d512', 'temporal_attention',
                      'fused_gn_silu_tconv3', 'conv3x3', 'upsample_conv2x')
+# the CogVideoX SR clip's kernels, with their launches in one clip (50 DiT
+# calls of 42 layers: K9 on q and on k, K1 once)
+COG_PATH_LAUNCHES = {'qk_ln_rope': 4200, 'flash_packed': 2100}
 # the train step's kernels: the UNet's under autograd, and the VAE decode of
 # pred-x0 for the frequency loss (no grad)
 TRAIN_PATH_KERNELS = ('flash_packed_lse', 'flash_bwd', 'flash_d512',
@@ -292,6 +304,7 @@ def check_kernels(dev) -> dict[str, dict]:
     torch.cuda.synchronize()
     check_vae_kernels(dev, g, randn, record, results)
     check_train_kernels(dev, randn, record, results)
+    check_dit_kernels(dev, g, randn, record, results)
     return results
 
 
@@ -581,8 +594,126 @@ def check_train_kernels(dev, randn, record, results) -> None:
     torch.cuda.synchronize()
 
 
+def packed_plain_chunked(q, k, v, heads: int, kv_valid: int):
+    """flash_attention_packed_plain of a prescaled q, one batch row and 8
+    heads at a time: the fp32 logits of all 48 heads of one row at 9680
+    tokens would take 18 GB."""
+    import torch
+    from star_tpu_torch.ops import flash_attention as fa
+    head_chunk = 8
+    out = torch.empty_like(q)
+    for bi in range(q.shape[0]):
+        for h0 in range(0, heads, head_chunk):
+            cols = slice(h0 * 64, (h0 + head_chunk) * 64)
+            out[bi:bi + 1, :, cols] = fa.flash_attention_packed_plain(
+                *(t[bi:bi + 1, :, cols] for t in (q, k, v)), head_chunk,
+                0.125, kv_valid=kv_valid, prescaled=True)
+    return out
+
+
+def check_dit_kernels(dev, g, randn, record, results) -> None:
+    """K9 (qk-LayerNorm + RoPE) and K1 at the CogVideoX DiT's attention
+    shape: q/k/v [2, 9680, 3072], 48 heads, the DiT's RoPE tables (identity
+    rows 0-225 and 9676-9679, 3D RoPE between), K9 on q with the softmax
+    scale * log2(e) folded in and on k with 1; then K1 prescaled with
+    kv_valid=9676 on K9's outputs."""
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.models.dit.dit import rope_tables
+    from star_tpu_torch.ops import flash_attention as fa, qk_ln_rope as qr
+
+    b, s, heads, valid = 2, 9680, 48, 9676
+    c = heads * 64
+    cos, sin = (torch.from_numpy(a).to(dev)
+                for a in rope_tables(226, 7, 30, 45, s, 64))
+    fold_q = qr.LOG2E / 8.0
+    qkv = []
+    for what, fold in (('q', fold_q), ('k', 1.0)):
+        x = (torch.randn(b, s, c, generator=g, device=dev) * 2 + 0.5) \
+            .to(torch.bfloat16)
+        sc = torch.randn(64, generator=g, device=dev) * 0.1 + 1.0
+        bi = torch.randn(64, generator=g, device=dev) * 0.1
+        out = qr.qk_ln_rope(x, sc, bi, cos, sin, heads, fold_scale=fold)
+        agree = agrees(f'K9 {what} [{b},{s},{c}] fold {fold:.4f}', [(
+            out, qr.qk_ln_rope_plain(x, sc, bi, cos, sin, heads,
+                                     fold_scale=fold))])
+        qkv.append(out)
+    ms = cuda_ms(lambda: qr.qk_ln_rope(x, sc, bi, cos, sin, heads), reps=20)
+    plain_ms = cuda_ms(lambda: qr.qk_ln_rope_plain(x, sc, bi, cos, sin,
+                                                   heads), reps=2)
+    x4, sc16, bi16 = x.view(b, s, heads, 64), sc.bfloat16(), bi.bfloat16()
+    lib_ms = cuda_ms(lambda: F.layer_norm(x4, (64,), sc16, bi16, 1e-6),
+                     reps=20)
+    # bytes: x read and the output written once (bf16), the [S, 64] fp32
+    # tables and the [64] scale and bias read once
+    record('qk_ln_rope', 'cuda', 'star_tpu_torch/csrc/qk_ln_rope.cu',
+           'star_tpu/ops/qk_ln_rope.py:140', agree, ms, plain_ms,
+           10.0 * b * s * c, 2 * 2 * x.numel() + 2 * 4 * cos.numel() + 4 * 128,
+           lib_ms, [b, s, c])
+    results['qk_ln_rope']['library'] = (
+        'partial: F.layer_norm over the [B, S, H, 64] view, no rotation')
+    del x, x4, out
+    torch.cuda.synchronize()
+
+    q, k = qkv
+    v = randn(b, s, c)
+    out = fa.flash_attention_packed(q, k, v, heads, kv_valid=valid,
+                                    prescaled=True)
+    agree = agrees(f'K1 DiT [{b},{s},{c}] 48 heads kv_valid={valid} '
+                   'prescaled', [(out, packed_plain_chunked(q, k, v, heads,
+                                                           valid))])
+    del out
+    ms = cuda_ms(lambda: fa.flash_attention_packed(
+        q, k, v, heads, kv_valid=valid, prescaled=True), reps=5)
+    plain_ms = cuda_ms(lambda: packed_plain_chunked(q, k, v, heads, valid),
+                       reps=1)
+    to4 = lambda t: t[:, :valid].view(b, valid, heads, 64).transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        to4(q), to4(k), to4(v), scale=fa.LN2), reps=5)
+    results['flash_packed']['dit'] = sub_record(
+        [b, s, c], agree, ms, plain_ms, 4.0 * b * heads * s * valid * 64,
+        2 * (3 * b * s * c + b * s * c) - 2 * 2 * b * (s - valid) * c,
+        lib_ms, heads=heads, kv_valid=valid, prescaled=True,
+        library='F.scaled_dot_product_attention on [2, 9676, 48, 64]')
+    del q, k, v, qkv
+    torch.cuda.synchronize()
+
+
 # --------------------------------------------------------------------------
 # phase 2b: small models, kernels on the card vs plain versions on the host
+
+
+def randomised(m, g):
+    """m re-initialised from host generator g as flax initialises, then
+    every parameter nudged so that no zero-init head or zero conv stays
+    zero; eval mode, no grad."""
+    import torch
+    from star_tpu_torch.pipeline.build import init_like_flax
+    init_like_flax(m, g)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    return m.eval().requires_grad_(False)
+
+
+def card_vs_host(dev, name, ref, fn, *args, tol: float = 5e-2, **kw):
+    """fn on the card (bf16 module, kernels) against the host's fp32 `ref`
+    (plain versions): the largest error relative to the largest |ref|,
+    held to `tol`, and the kernel launches of the call."""
+    import torch
+    from star_tpu_torch import ops
+    on_card = [a.to(dev) for a in args]
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = fn(*on_card, **kw)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    err = ((out.float().cpu() - ref).abs().max()
+           / ref.abs().max().clamp_min(1e-6)).item()
+    log(f'small {name}: card (bf16, kernels) vs host (fp32, plain) '
+        f'error {err:.3e} of max |ref| (tol {tol:.0e}); launches {counts}')
+    assert math.isfinite(err) and err <= tol, (name, err)
+    return err, counts
 
 
 def check_small_models(dev) -> dict:
@@ -594,59 +725,37 @@ def check_small_models(dev) -> dict:
     dozen blocks."""
     import copy
     import torch
-    from star_tpu_torch import ops
     from star_tpu_torch.models.unet.unet import ControlledV2VUNet
-    from star_tpu_torch.pipeline.build import init_like_flax
     from star_tpu_torch.vae.svd_vae import SVDTemporalVAE
 
     g = torch.Generator().manual_seed(3)
 
-    def randomise(m):
-        init_like_flax(m, g)
-        with torch.no_grad():   # no zero-init head or zero conv stays zero
-            for p in m.parameters():
-                p.add_(torch.randn(p.shape, generator=g) * 0.02)
-        return m.eval().requires_grad_(False)
-
-    def compare(name, ref, fn, *args, **kw):
-        on_card = [a.to(dev) for a in args]
-        ops.reset_launch_counts()
-        with torch.no_grad():
-            out = fn(*on_card, **kw)
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in ops.launch_counts().items() if v}
-        err = ((out.float().cpu() - ref).abs().max()
-               / ref.abs().max().clamp_min(1e-6)).item()
-        log(f'small {name}: card (bf16, kernels) vs host (fp32, plain) '
-            f'error {err:.3e} of max |ref|; launches {counts}')
-        assert math.isfinite(err) and err <= 5e-2, (name, err)
-        return err, counts
-
-    unet = randomise(ControlledV2VUNet(
+    unet = randomised(ControlledV2VUNet(
         dim=64, dim_mult=(1, 2), num_res_blocks=1, attn_scales=(1.0, 0.5),
-        head_dim=64, num_heads_init_temporal=1, context_dim=64))
+        head_dim=64, num_heads_init_temporal=1, context_dim=64), g)
     x, hint = (torch.randn(1, 8, 26, 24, 4, generator=g) for _ in range(2))
     y = torch.randn(2, 77, 64, generator=g)
     tt = torch.tensor([500])
     with torch.no_grad():
         ref = unet(x, tt, y, hint, cfg_pair=True)
     card = copy.deepcopy(unet).to(dev, torch.bfloat16)
-    e_unet, c_unet = compare('UNet+ControlNet [1,8,26,24]', ref, card, x,
-                             tt, y, hint, cfg_pair=True)
+    e_unet, c_unet = card_vs_host(dev, 'UNet+ControlNet [1,8,26,24]', ref,
+                                  card, x, tt, y, hint, cfg_pair=True)
     for k in ('flash_packed', 'temporal_attention', 'fused_gn_silu_tconv3'):
         assert c_unet.get(k, 0) > 0, (k, c_unet)
 
-    vae = randomise(SVDTemporalVAE((32, 32, 64, 512), encoder_layers=1,
-                                   decoder_layers=1))
+    vae = randomised(SVDTemporalVAE((32, 32, 64, 512), encoder_layers=1,
+                                    decoder_layers=1), g)
     video = torch.rand(1, 3, 192, 192, 3, generator=g) * 2 - 1
     z = torch.randn(1, 3, 24, 24, 4, generator=g) * 0.5
     with torch.no_grad():
         ref_m = vae.encode_moments(video)
         ref_d = vae.decode(z)
     card = copy.deepcopy(vae).to(dev, torch.bfloat16)
-    e_enc, c_enc = compare('VAE encode [1,3,192,192]', ref_m,
-                           card.encode_moments, video)
-    e_dec, c_dec = compare('VAE decode [1,3,24,24]', ref_d, card.decode, z)
+    e_enc, c_enc = card_vs_host(dev, 'VAE encode [1,3,192,192]', ref_m,
+                                card.encode_moments, video)
+    e_dec, c_dec = card_vs_host(dev, 'VAE decode [1,3,24,24]', ref_d,
+                                card.decode, z)
     assert c_enc.get('flash_d512', 0) > 0 and c_dec.get('flash_d512', 0) > 0
     assert c_dec.get('fused_gn_silu_tconv3', 0) > 0
     # the 512-channel blocks run K6 and the 512-channel upsample K7; the
@@ -656,6 +765,82 @@ def check_small_models(dev) -> dict:
     assert c_dec.get('upsample_conv2x', 0) > 0
     assert c_dec.get('interleave2x2', 0) > 0
     return dict(unet=e_unet, vae_encode=e_enc, vae_decode=e_dec)
+
+
+# The small CogVideoX models, card (bf16, kernels) against host (fp32,
+# plain versions), as a fraction of the largest |host output|: the DiT's
+# and the causal VAE's. Set from the first two chip runs (DiT 8.8e-3 before
+# its attention was sharpened, see small_cog_dit, and 9.8e-3 after; encode
+# 1.9e-2 and windowed decode 1.5e-2 both times) with a margin of 3x; on the
+# host, a K9 without its rotation misses the DiT's by 5.6x, a K9 rotating
+# the wrong way by 6.6x and a K1 that attends the dead key tail by 1.75x
+# (tests/test_torch_dit.py).
+COG_DIT_TOL, COG_VAE_TOL = 3e-2, 6e-2
+
+
+def small_cog_dit():
+    """Phase 2b's small CogVideoX DiT on the host (fp32) and its inputs:
+    hidden 256, 4 heads of 64, 2 layers, patch 2, 4 latent channels, 8
+    text tokens of width 32, 3 latent frames of 24x32 (576 image + 8 text
+    tokens = 584, carried as 592 with kv_valid 584, so K9 and K1 fire).
+    The qk-LN scales are tripled: random q and k give a flat softmax whose
+    output is about the mean of v, which neither the rotation nor the key
+    mask moves; sharper logits make both show in the output. Returns the
+    DiT, its inputs (x, t, context) and the generator, which the causal
+    VAE's draws continue."""
+    import torch
+    from star_tpu_torch.models.dit.dit import CogVideoDiT
+    g = torch.Generator().manual_seed(11)
+    dit = randomised(CogVideoDiT(
+        hidden_size=256, num_layers=2, num_heads=4, patch_size=2,
+        latent_channels=4, text_hidden_size=32, text_length=8,
+        time_embed_dim=64), g)
+    with torch.no_grad():
+        for layer in dit.layers:
+            layer.q_ln_scale.mul_(3.0)
+            layer.k_ln_scale.mul_(3.0)
+    args = (torch.randn(2, 3, 24, 32, 8, generator=g),
+            torch.tensor([300, 700]), torch.randn(2, 8, 32, generator=g))
+    return dit, args, g
+
+
+def check_small_cog(dev) -> dict:
+    """The small CogVideoX DiT of small_cog_dit, and a small causal VAE (ch
+    32, mult (1, 2, 2, 4), z 4): encode of 9 frames of 64x96 and the serial
+    decode of 5 latent frames in the pipeline's two windows with the
+    carried cache; the card in bf16 against the same weights on the host
+    in fp32."""
+    import copy
+    import torch
+    from star_tpu_torch.vae.causal_vae import CogVideoVAE
+
+    dit, args, g = small_cog_dit()
+    with torch.no_grad():
+        ref = dit(*args)
+    card = copy.deepcopy(dit).to(dev, torch.bfloat16)
+    e_dit, c_dit = card_vs_host(dev, 'Cog DiT [2,3,24,32] 592 tokens', ref,
+                                card, *args, tol=COG_DIT_TOL)
+    assert c_dit == {'qk_ln_rope': 4, 'flash_packed': 2}, c_dit
+
+    vae = randomised(CogVideoVAE(ch=32, ch_mult=(1, 2, 2, 4),
+                                 num_res_blocks=1, z_channels=4), g)
+    video = torch.rand(1, 9, 64, 96, 3, generator=g) * 2 - 1
+    z = torch.randn(1, 5, 8, 12, 4, generator=g)
+
+    def windows(vae_, z_):
+        out1, cache = vae_.decode_window(z_[:, :3], {}, True)
+        out2, _ = vae_.decode_window(z_[:, 3:5], cache, False)
+        return torch.cat([out1, out2], dim=1)
+    with torch.no_grad():
+        ref_m = vae.encode_moments(video)
+        ref_d = windows(vae, z)
+    card = copy.deepcopy(vae).to(dev, torch.bfloat16)
+    e_enc, _ = card_vs_host(dev, 'causal VAE encode [1,9,64,96]', ref_m,
+                            card.encode_moments, video, tol=COG_VAE_TOL)
+    e_dec, _ = card_vs_host(dev, 'causal VAE windowed decode [1,5,8,12]',
+                            ref_d, lambda zz: windows(card, zz), z,
+                            tol=COG_VAE_TOL)
+    return dict(dit=e_dit, vae_encode=e_enc, vae_decode=e_dec)
 
 
 # The small-width train step, card (bf16, kernels) against host (fp32,
@@ -861,9 +1046,35 @@ def time_cfg_step(dev, models, profile: str | None) -> dict:
     return res
 
 
+# kernel families of a profile, by a substring of the kernel's name; the
+# first family that matches takes it, and the rest is 'other'
+KERNEL_FAMILIES = (
+    ('K1/K2 flash forward', ('flash_fwd',)),
+    ('K3 flash backward', ('flash_bwd',)),
+    ('K4 frame attention', ('temporal_attention_kernel',)),
+    ('K5 fused GN+SiLU+tconv', ('fused_tconv3',)),
+    ('K6/K7 conv tile', ('conv_tile_kernel',)),
+    ('K8 interleave', ('interleave2x2',)),
+    ('K9 qk-LN+RoPE', ('qk_ln_rope',)),
+    ('GEMMs and library convs', ('nvjet', 'gemm', 'gemv', 'xmma', 'cutlass',
+                                 'convolve', 'cudnn')),
+    ('reductions', ('reduce_kernel',)),
+    ('elementwise and copies', ('elementwise', 'copy', 'CatArray', 'Memset',
+                                'Fill')),
+)
+
+
+def kernel_family(name: str) -> str:
+    for family, keys in KERNEL_FAMILIES:
+        if any(k in name for k in keys):
+            return family
+    return 'other'
+
+
 def profile_step(step, path: str) -> dict:
-    """Device time by kernel over one step (torch.profiler), the busy
-    share, and the top kernels; the full table is written to `path`."""
+    """Device time by kernel over one step (torch.profiler), summed by
+    kernel family, the busy share, and the top kernels; the full table is
+    written to `path`."""
     import os
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -886,9 +1097,16 @@ def profile_step(step, path: str) -> dict:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    families: dict[str, float] = {}
+    for ms, _, key in rows:
+        fam = kernel_family(key)
+        families[fam] = families.get(fam, 0.0) + ms
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, 'w') as fh:
         fh.write(f'wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n')
+        for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+            fh.write(f'family {ms:10.3f} ms {100 * ms / busy_ms:5.1f}%  '
+                     f'{fam}\n')
         for ms, n, key in rows:
             fh.write(f'{ms:10.3f} ms {n:6d}  {key}\n')
     top = [dict(ms=round(ms, 3), count=n, kernel=key[:80])
@@ -897,7 +1115,8 @@ def profile_step(step, path: str) -> dict:
         f'{busy_ms:.1f} ms; top: '
         + '; '.join(f"{r['kernel'][:40]} {r['ms']} ms x{r['count']}"
                     for r in top[:6]))
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, top=top)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=families,
+                top=top)
 
 
 # --------------------------------------------------------------------------
@@ -1003,6 +1222,94 @@ def run_train(dev, models) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 6: the CogVideoX SR path at full width
+
+
+def run_cog(dev) -> dict:
+    """The published CogVideoX-5B SR models (DiT 42x3072, T5-XXL, causal
+    VAE 128) with seeded random bf16 weights made on the card;
+    CogVideoSRPipeline.enhance_a_video on 25 synthetic frames of 480x720
+    (7 latent frames of 60x90, 9676 tokens carried as 9680) with the
+    default sampler (50 VPSDE-DPM++(2M) steps, DynamicCFG 6 / 5)."""
+    import numpy as np
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.pipeline import (build_cog_pipeline,
+                                         init_random_cog_models)
+
+    t0 = time.perf_counter()
+    models = init_random_cog_models(seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = {k: sum(p.numel() for p in getattr(models, k).parameters())
+                for k in ('dit', 'vae', 'text')}
+    log(f'CogVideoX models (random bf16) on the card in {init_s:.1f} s: '
+        f'{n_params}; memory allocated '
+        f'{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB')
+    pipe = build_cog_pipeline(models, allow_hash_tokenizer=True, device=dev,
+                              time_stages=True)
+    frames = np.random.RandomState(0).uniform(
+        0, 255, (25, 480, 720, 3)).astype(np.uint8)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    dit_calls = []
+    hook = models.dit.register_forward_pre_hook(
+        lambda *_: dit_calls.append(1))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.enhance_a_video(frames, 'a good video', seed=42)
+    clip_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    hook.remove()
+    latents = pipe.last_latents
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f'Cog enhance_a_video 25x480x720 -> {out.shape} {out.dtype} in '
+        f'{clip_s:.2f} s ({len(dit_calls)} DiT calls); stages '
+        + ', '.join(f'{k} {v:.3f} s' for k, v in pipe.stage_seconds.items())
+        + f'; peak memory {peak_gb:.1f} GB; launches {launches}')
+    assert out.shape == (25, 480, 720, 3), out.shape
+    assert out.dtype == np.uint8, out.dtype
+    assert tuple(latents.shape) == (1, 7, 60, 90, 16), latents.shape
+    assert bool(torch.isfinite(latents).all()), 'non-finite latents'
+    assert float(out.std()) > 0.0, 'constant output'
+    assert len(dit_calls) == 50, len(dit_calls)
+    want = {k: COG_PATH_LAUNCHES.get(k, 0) for k in launches}
+    assert launches == want, f'Cog clip launches {launches}, want {want}'
+    return dict(models=models, launches=launches, clip_s=clip_s,
+                stages=dict(pipe.stage_seconds), dit_calls=len(dit_calls),
+                init_s=init_s, peak_gb=peak_gb, out_mean=float(out.mean()),
+                out_std=float(out.std()))
+
+
+def time_dit_step(dev, models, profile: str | None) -> dict:
+    """One DiT call on the CFG pair at tools/bench_cog.py's shape: x
+    [2, 7, 60, 90, 32] (noisy || LQ latents), t = 499, context
+    [2, 226, 4096], bf16."""
+    import os
+    import torch
+    from star_tpu_torch import ops
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(2, 7, 60, 90, 32, generator=g, device=dev).bfloat16()
+    ctx = torch.randn(2, 226, 4096, generator=g, device=dev).bfloat16()
+    tt = torch.full((2,), 499, device=dev)
+    step = lambda: models.dit(x, tt, ctx)
+    with torch.no_grad():
+        step()
+        ops.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in ops.launch_counts().items() if v}
+        ms = cuda_ms(step, reps=3, warmup=0)
+        res = dict(ms=ms, launches=per_step)
+        log(f'DiT CFG step [2, 7, 60, 90, 32], 9680 tokens, bf16: '
+            f'{ms:.1f} ms; launches per step {per_step}')
+        if profile:
+            root, ext = os.path.splitext(profile)
+            res['profile'] = profile_step(step, f'{root}_dit{ext or ".txt"}')
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1011,7 +1318,8 @@ def main() -> int:
                     help='kernels: build and check the kernels only')
     ap.add_argument('--profile', metavar='FILE',
                     help='also trace one CFG step with torch.profiler and '
-                    'write its device time by kernel to FILE')
+                    'write its device time by kernel to FILE, and one DiT '
+                    'CFG step to FILE with _dit before its extension')
     args = ap.parse_args()
 
     import torch
@@ -1036,23 +1344,41 @@ def main() -> int:
         return 0
     small = check_small_models(dev)
     small['train'] = check_small_train(dev)
+    small['cog'] = check_small_cog(dev)
     run = run_pipeline(dev)
     step = time_cfg_step(dev, run['models'], args.profile)
     train = run_train(dev, run['models'])
+    # the I2VGen models go before the CogVideoX ones come, so that the Cog
+    # clip's peak memory is its own
+    del run['models'], run['pipe']
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'I2VGen models freed: {torch.cuda.memory_allocated(dev) / 1e9:.2f} '
+        'GB still allocated')
+    cog = run_cog(dev)
+    dit_step = time_dit_step(dev, cog.pop('models'), args.profile)
     for name, rec in results.items():
         # each kernel's launches on the path it belongs to: the training
-        # forward and backward in the train step, the others in the clip
+        # forward and backward in the train step, K9 in the Cog clip, the
+        # others in the I2VGen clip
         on_train = name in ('flash_packed_lse', 'flash_bwd')
-        rec['launches'] = (train if on_train else run)['launches'][name]
+        rec['launches'] = (train if on_train else cog if name == 'qk_ln_rope'
+                           else run)['launches'][name]
         rec['launches_per_cfg_step'] = step['launches'][name]
         rec['launches_per_train_step'] = train['launches'][name]
+        rec['launches_cog_clip'] = cog['launches'][name]
+        rec['launches_per_dit_step'] = dit_step['launches'].get(name, 0)
     log('summary ' + json.dumps(dict(
         small_model_errors=small, clip_s=run['clip_s'],
         unet_calls=run['unet_calls'],
         stages=run['stages'], peak_gb=run['peak_gb'], cfg_step_ms=step['ms'],
         profile=step.get('profile'), train_step_ms=train['step_ms'],
         train_steps_ms=train['steps_ms'], train_peak_gb=train['peak_gb'],
-        train_losses=train['losses'])))
+        train_losses=train['losses'], cog_clip_s=cog['clip_s'],
+        cog_dit_calls=cog['dit_calls'], cog_stages=cog['stages'],
+        cog_init_s=cog['init_s'], cog_peak_gb=cog['peak_gb'],
+        cog_out_mean=cog['out_mean'], cog_out_std=cog['out_std'],
+        dit_step_ms=dit_step['ms'], dit_profile=dit_step.get('profile'))))
     print(json.dumps({'kernels': list(results.values())}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

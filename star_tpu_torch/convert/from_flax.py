@@ -6,9 +6,15 @@ The leaf is rewritten by the kind of port module that owns it:
 
   Linear          Dense kernel [in, out]      -> weight [out, in]
   Conv2d          Conv kernel HWIO            -> weight OIHW
+  Conv3d          Conv kernel DHWIO           -> weight OIDHW
   NormParams      GroupNorm/LayerNorm 'scale' -> weight ('bias' as is)
   TConvParams     (3, 1, Cin, Cout) kernel    -> weight, layout kept (K5's)
-  anything else   a parameter of the same name (embeddings, mix_factor)
+  anything else   a parameter of the same name (embeddings, mix_factor,
+                  the DiT's loose LayerNorm parameters)
+
+A scanned layer stack (flax `nn.scan`: 'layers/layer/...' with a leading
+axis of the layer count) lands on an nn.ModuleList of the same name, layer
+i taking slice i of every leaf.
 
 Every flax leaf must land somewhere and every port parameter must be
 found: a mismatch raises.
@@ -33,6 +39,20 @@ def _leaves(tree: Mapping[str, Any], prefix: str = ''):
             yield f'{prefix}{k}'
 
 
+def _index(tree: Mapping[str, Any], i: int, n: int) -> dict:
+    """Slice i of every leaf of a scanned stack of n layers."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out[k] = _index(v, i, n)
+        elif np.shape(v)[0] != n:
+            raise ValueError(f'{k}: a stack of {np.shape(v)[0]} layers for '
+                             f'{n} port layers')
+        else:
+            out[k] = np.asarray(v)[i]
+    return out
+
+
 def from_flax(module: nn.Module, tree: Mapping[str, Any]
               ) -> dict[str, torch.Tensor]:
     """flax params (nested dicts of arrays; a lone top-level 'params' key is
@@ -51,9 +71,10 @@ def from_flax(module: nn.Module, tree: Mapping[str, Any]
             sd[key + 'weight'] = leaf(sub, path, 'kernel').T.contiguous()
             if mod.bias is not None:
                 sd[key + 'bias'] = leaf(sub, path, 'bias')
-        elif isinstance(mod, nn.Conv2d):
-            sd[key + 'weight'] = leaf(sub, path, 'kernel').permute(
-                3, 2, 0, 1).contiguous()
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d)):
+            kernel = leaf(sub, path, 'kernel')
+            order = (3, 2, 0, 1) if kernel.ndim == 4 else (4, 3, 0, 1, 2)
+            sd[key + 'weight'] = kernel.permute(*order).contiguous()
             if mod.bias is not None:
                 sd[key + 'bias'] = leaf(sub, path, 'bias')
         elif isinstance(mod, NormParams):
@@ -66,7 +87,13 @@ def from_flax(module: nn.Module, tree: Mapping[str, Any]
             for name, _ in mod.named_parameters(recurse=False):
                 sd[key + name] = leaf(sub, path, name)
         for name, child in mod.named_children():
-            walk(child, sub[name], f'{path}{name}/', f'{key}{name}.')
+            if isinstance(child, nn.ModuleList):
+                stack = sub[name]['layer']
+                for i, layer in enumerate(child):
+                    walk(layer, _index(stack, i, len(child)),
+                         f'{path}{name}/layer/', f'{key}{name}.{i}.')
+            else:
+                walk(child, sub[name], f'{path}{name}/', f'{key}{name}.')
 
     walk(module, tree, '', '')
     unused = sorted(set(_leaves(tree)) - used)

@@ -9,18 +9,19 @@ wrappers, their plain PyTorch versions and launch counters:
   conv3x3               K6 (fused GN + SiLU + 3x3 conv)
   upsample_conv         K7 (fused nearest-2x + 3x3 conv) and K8 (2x2 phase
                         interleave)
+  qk_ln_rope            K9 (fused qk-LayerNorm + half-split RoPE)
 
 K1/K2-d64 (with K3), K4 and K5 are differentiable through
-torch.autograd.Function; K2-d512, K6, K7 and K8 have no backward and
-raise under grad.
+torch.autograd.Function; K2-d512, K6, K7, K8 and K9 have no backward
+and raise under grad.
 """
 
-from . import (conv3x3, flash_attention, fused_temporal_conv,
+from . import (conv3x3, flash_attention, fused_temporal_conv, qk_ln_rope,
                temporal_attention, upsample_conv)
 
 KERNELS = ('flash_packed', 'flash_packed_lse', 'flash_bwd', 'flash_d512',
            'temporal_attention', 'fused_gn_silu_tconv3', 'conv3x3',
-           'upsample_conv2x', 'interleave2x2')
+           'upsample_conv2x', 'interleave2x2', 'qk_ln_rope')
 
 
 def launch_counts() -> dict[str, int]:
@@ -33,7 +34,8 @@ def launch_counts() -> dict[str, int]:
             'fused_gn_silu_tconv3': fused_temporal_conv.LAUNCHES,
             'conv3x3': conv3x3.LAUNCHES,
             'upsample_conv2x': upsample_conv.UPSAMPLE_LAUNCHES,
-            'interleave2x2': upsample_conv.INTERLEAVE_LAUNCHES}
+            'interleave2x2': upsample_conv.INTERLEAVE_LAUNCHES,
+            'qk_ln_rope': qk_ln_rope.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -46,3 +48,4 @@ def reset_launch_counts() -> None:
     conv3x3.LAUNCHES = 0
     upsample_conv.UPSAMPLE_LAUNCHES = 0
     upsample_conv.INTERLEAVE_LAUNCHES = 0
+    qk_ln_rope.LAUNCHES = 0

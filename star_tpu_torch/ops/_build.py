@@ -61,6 +61,8 @@ _SIGNATURES = {
     'star_upsample_conv2x': [P, P, P, P, P, P, I, I, I, I, I, I, P],
     # p00, p01, p10, p11, out, sum, sumsq, N, H, W, C, want_stats, stream
     'star_interleave2x2': [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, cos, sin, scale, bias, out, rows, S, H, eps, stream
+    'star_qk_ln_rope': [P, P, P, P, P, P, L, I, I, Fl, P],
 }
 
 

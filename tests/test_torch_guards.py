@@ -450,3 +450,107 @@ def test_kernels_match_plain_versions_on_the_card():
     for g_, w_ in zip(got[1:], want[1:]):
         assert agree(g_[:, :210], w_)
         assert float(g_[:, 210:].abs().max()) == 0.0
+
+
+# ------------------------------------------------------------------ K9
+
+
+def _k9_args(x, heads=2, s=None, table_width=64):
+    s = x.shape[1] if s is None else s
+    return (x, torch.ones(64), torch.zeros(64), torch.ones(s, table_width),
+            torch.zeros(s, table_width), heads)
+
+
+def test_qk_ln_rope_launches_for_cuda_tensors_and_plain_for_cpu(monkeypatch):
+    """K9's wrapper: a CUDA tensor reaches the launcher and never the plain
+    version; a CPU tensor gets the plain version and never the launcher."""
+    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
+    launched = []
+    monkeypatch.setattr(qr, '_launch', lambda x, *a: (launched.append(a[-1]),
+                                                      x)[1])
+    monkeypatch.setattr(qr, 'qk_ln_rope_plain', _refuse)
+    qr.qk_ln_rope(*_k9_args(_fake(torch.randn(1, 5, 128))), fold_scale=0.5)
+    assert launched == [0.5]
+    monkeypatch.undo()
+    monkeypatch.setattr(qr, '_launch', _refuse)
+    x = torch.randn(1, 5, 128)
+    got = qr.qk_ln_rope(*_k9_args(x))
+    torch.testing.assert_close(got, qr.qk_ln_rope_plain(*_k9_args(x)))
+
+
+def test_qk_ln_rope_refuses_grad():
+    """K9 has no backward kernel: on CUDA tensors that require grad, with
+    grad mode on, its launcher raises before building anything."""
+    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
+    x = _fake(torch.zeros(1, 5, 128, dtype=torch.bfloat16), True)
+    with pytest.raises(RuntimeError, match='no backward kernel'):
+        qr.qk_ln_rope(*_k9_args(x))
+
+
+@pytest.mark.parametrize('case', ['cpu', 'fp32', 'strided', 'head_dim_32',
+                                  'tiled_table', 'short_table'])
+def test_qk_ln_rope_launcher_refuses_what_the_kernel_does_not_take(case):
+    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
+    bf = lambda *s: _fake(torch.zeros(*s, dtype=torch.bfloat16))
+    args = {
+        'cpu': _k9_args(torch.zeros(1, 5, 128, dtype=torch.bfloat16)),
+        'fp32': _k9_args(_fake(torch.zeros(1, 5, 128))),
+        'strided': _k9_args(bf(1, 128, 5).transpose(1, 2)),
+        'head_dim_32': _k9_args(bf(1, 5, 128), heads=4),
+        'tiled_table': _k9_args(bf(1, 5, 128), table_width=128),
+        'short_table': _k9_args(bf(1, 5, 128), s=4),
+    }[case]
+    with pytest.raises(ValueError):
+        qr._launch(*args, 1e-6, 1.0)
+
+
+def test_dit_layer_reaches_k9_twice_and_k1_once(monkeypatch):
+    """A DiT layer on CUDA tensors at >= 512 tokens: K9 on q (softmax scale
+    * log2(e) folded in) and on k (fold 1), then K1 prescaled with the dead
+    tail masked by kv_valid — no plain version."""
+    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
+    fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
+    from star_tpu_torch.models.dit.dit import DiTLayer, rope_tables
+    calls = []
+    monkeypatch.setattr(qr, 'qk_ln_rope_plain', _refuse)
+    monkeypatch.setattr(fa, 'flash_attention_packed_plain', _refuse)
+    monkeypatch.setattr(fa, 'attention_plain', _refuse)
+    monkeypatch.setattr(qr, '_launch', lambda x, sc, bi, cos, sin, h, eps,
+                        fold: (calls.append(('k9', fold)), x)[1])
+    monkeypatch.setattr(fa, '_launch', lambda q, k, v, h, d, c, kv,
+                        want_lse=False: (calls.append(('k1', c, kv)), q)[1])
+    layer = DiTLayer(128, 2, 8, 16).requires_grad_(False)
+    grid, s_pad = (1, 16, 32), 528          # 8 + 512 tokens, padded to 528
+    cos, sin = (torch.from_numpy(a) for a in rope_tables(8, *grid, s_pad, 64))
+    with torch.no_grad():
+        out = layer(_fake(torch.randn(2, s_pad, 128)), torch.randn(2, 16),
+                    cos, sin, grid)
+    assert calls == [('k9', fa.LOG2E / 8.0), ('k9', 1.0), ('k1', 1.0, 520)]
+    assert out.shape == (2, s_pad, 128)
+
+
+@pytest.mark.cuda
+def test_qk_ln_rope_on_the_card():
+    """On a card: K9 agrees with its plain version (relative, as
+    chip_smoke.py holds it), and its wrapper raises on fp32 or
+    non-contiguous input instead of falling back."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    x = (torch.randn(2, 300, 6 * 64, generator=g, device='cuda') * 2 + 0.5
+         ).bfloat16()
+    sc = torch.randn(64, generator=g, device='cuda') * 0.1 + 1
+    bi = torch.randn(64, generator=g, device='cuda') * 0.1
+    ang = torch.rand(300, 64, generator=g, device='cuda') * 3
+    cos, sin = ang.cos(), ang.sin()
+    got = qr.qk_ln_rope(x, sc, bi, cos, sin, 6, fold_scale=0.18)
+    want = qr.qk_ln_rope_plain(x, sc, bi, cos, sin, 6, fold_scale=0.18)
+    a, b = got.float(), want.float()
+    assert (a - b).abs().max() <= 2e-2 * b.abs().max()
+    assert (a - b).norm() <= 1e-2 * b.norm()
+    with pytest.raises(ValueError):
+        qr.qk_ln_rope(x.float(), sc, bi, cos, sin, 6)
+    with pytest.raises(ValueError):
+        qr.qk_ln_rope(x.transpose(0, 1).contiguous().transpose(0, 1), sc,
+                      bi, cos, sin, 6)

@@ -8,7 +8,8 @@
    d=64 training forward writing the log-sum-exp), K3 flash backward, K4
    frame attention, K5 fused GN+SiLU+temporal conv, K6 fused GN+SiLU+3x3
    conv, K7 fused nearest-2x+3x3 conv, K8 2x2 phase interleave, K9 fused
-   qk-LayerNorm+RoPE; K1 also at the CogVideoX DiT's 48 heads, 9680
+   qk-LayerNorm+RoPE, K10 LayerNorm (optionally LIEM-gated), K11 residual
+   add + LayerNorm; K1 also at the CogVideoX DiT's 48 heads, 9680
    tokens, dead key tail and prescaled q) against its plain PyTorch
    version at the shapes the main paths give it, and times kernel, plain
    version and one PyTorch library call with CUDA events; then runs a
@@ -52,15 +53,31 @@ import time
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 MAIN_PATH_KERNELS = ('flash_packed', 'flash_d512', 'temporal_attention',
-                     'fused_gn_silu_tconv3', 'conv3x3', 'upsample_conv2x')
+                     'fused_gn_silu_tconv3', 'conv3x3', 'upsample_conv2x',
+                     'fused_ln', 'fused_resid_ln')
+# K10 and K11 launches, from the models' structure. One UNet+ControlNet
+# call runs 25 temporal transformer blocks (K10 gated at norm1, K11 at
+# norm2 and norm3) and 23 spatial ones (K11 at norm2 and norm3; the two at
+# the middle run no K1, whence K1's 21); a train step runs them forward and
+# again in the remat recompute. A CLIP text encode runs 23 blocks (ln_1,
+# ln_2) and ln_final, two prompts a clip. A DiT call runs 42 layers
+# (input_ln over the whole stream, post_ln on the text and image segments)
+# and the two final norms over the stream.
+LN_PER_CFG_STEP = {'fused_ln': 25, 'fused_resid_ln': 96}
+LN_PER_TRAIN_STEP = {'fused_ln': 50, 'fused_resid_ln': 192}
+LN_PER_TEXT_ENCODE = 47
+LN_PER_DIT_STEP = {'fused_ln': 42 * 3 + 2}
 # the CogVideoX SR clip's kernels, with their launches in one clip (50 DiT
-# calls of 42 layers: K9 on q and on k, K1 once)
-COG_PATH_LAUNCHES = {'qk_ln_rope': 4200, 'flash_packed': 2100}
+# calls of 42 layers: K9 on q and on k, K1 once, K10 three times; and the
+# two final norms)
+COG_PATH_LAUNCHES = {'qk_ln_rope': 4200, 'flash_packed': 2100,
+                     'fused_ln': 50 * LN_PER_DIT_STEP['fused_ln']}
 # the train step's kernels: the UNet's under autograd, and the VAE decode of
 # pred-x0 for the frequency loss (no grad)
 TRAIN_PATH_KERNELS = ('flash_packed_lse', 'flash_bwd', 'flash_d512',
                       'temporal_attention', 'fused_gn_silu_tconv3',
-                      'conv3x3', 'upsample_conv2x')
+                      'conv3x3', 'upsample_conv2x', 'fused_ln',
+                      'fused_resid_ln')
 
 
 def log(msg: str) -> None:
@@ -91,6 +108,12 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def assert_launches(what: str, counts: dict, want: dict) -> None:
+    """The exact launches of the kernels in `want`."""
+    got = {k: counts.get(k, 0) for k in want}
+    assert got == want, f'{what}: launches {got}, want {want}'
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -305,6 +328,7 @@ def check_kernels(dev) -> dict[str, dict]:
     check_vae_kernels(dev, g, randn, record, results)
     check_train_kernels(dev, randn, record, results)
     check_dit_kernels(dev, g, randn, record, results)
+    check_ln_kernels(dev, g, record, results)
     return results
 
 
@@ -679,6 +703,114 @@ def check_dit_kernels(dev, g, randn, record, results) -> None:
     torch.cuda.synchronize()
 
 
+def ln_inputs(shape, gated: bool, resid: bool, dev, g, param_dtype=None):
+    """Inputs of K10 (resid False) or K11 at `shape`: (x or y, resid or
+    None, scale, bias, gate_w or None), the activations bf16. Each row has
+    its own scale, log-uniform from 1e-3 to 1, and its own offset: a
+    LayerNorm is blind to a per-row factor except through eps, so the LIEM
+    gate shows only on rows whose variance comes near eps (1e-5), and a
+    kernel that drops the gate must fail there. The parameters are bf16 as
+    the bf16 modules hold them, or `param_dtype`."""
+    import torch
+
+    def rows():
+        lead = tuple(shape[:-1]) + (1,)
+        size = torch.exp(torch.rand(lead, generator=g, device=dev)
+                         * math.log(1e-3))
+        off = torch.randn(lead, generator=g, device=dev)
+        return ((torch.randn(tuple(shape), generator=g, device=dev) + off)
+                * size).to(torch.bfloat16)
+    c = shape[-1]
+    pdt = param_dtype or torch.bfloat16
+    x = rows()
+    r = rows() if resid else None
+    scale = (torch.rand(c, generator=g, device=dev) * 0.4 + 0.8).to(pdt)
+    bias = (torch.randn(c, generator=g, device=dev) * 0.1).to(pdt)
+    gw = (torch.randn(2, generator=g, device=dev) * 2).to(pdt) \
+        if gated else None
+    return x, r, scale, bias, gw
+
+
+def check_ln_kernels(dev, g, record, results) -> None:
+    """K10 and K11 against their plain versions at the shapes the paths give
+    them: the UNet's temporal stream at its three levels ([2,8,N,C], cfg
+    pair: K10 gated at norm1, K11 gated with the residual at norm2 and plain
+    with the residual at norm3), the spatial stream at the top level
+    ([16,14400,320], K11 plain with the residual), CLIP's [2,77,1024] and
+    the DiT's stream [2,9680,3072] (K10 plain). K11's xr must equal the
+    plain version's y + resid bit for bit. Timed at each UNet level and
+    at the DiT's shape."""
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import fused_ln as fl
+
+    def case(shape, gated, resid, timed, pdt=None, eps=1e-5):
+        x, r, sc, bi, gw = ln_inputs(shape, gated, resid, dev, g, pdt)
+        what = (f'{"K11" if resid else "K10"} {list(shape)}'
+                f'{" gated" if gated else ""}{" +resid" if resid else ""}'
+                f'{" fp32 params" if pdt else ""}')
+        if resid:
+            run = lambda: fl.fused_resid_ln(x, sc, bi, r, gw, eps)
+            plain = lambda: fl.fused_resid_ln_plain(x, sc, bi, r, gw, eps)
+            (out, xr), (ref, xr_ref) = run(), plain()
+            assert torch.equal(xr, xr_ref), f'{what}: xr is not y + resid'
+            # partial yardstick: the add and F.layer_norm, no gate
+            library = lambda: F.layer_norm(x + r, (shape[-1],), sc, bi, eps)
+        else:
+            run = lambda: fl.fused_ln(x, sc, bi, eps, gw)
+            plain = lambda: fl.fused_ln_plain(x, sc, bi, eps, gw)
+            out, ref = run(), plain()
+            library = lambda: F.layer_norm(x, (shape[-1],), sc, bi, eps)
+        agree = agrees(what, [(out, ref)])
+        del out, ref
+        if not timed:
+            return None
+        ms = cuda_ms(run, reps=20)
+        plain_ms = cuda_ms(plain, reps=3)
+        lib_ms = cuda_ms(library, reps=20)
+        # bytes: each bf16 input read once and each output written once
+        n = x.numel()
+        nbytes = (4 if resid else 2) * 2 * n
+        return agree, ms, plain_ms, 8.0 * n, nbytes, lib_ms
+
+    k10 = case((2, 8, 14400, 320), True, False, True)
+    record('fused_ln', 'cuda', 'star_tpu_torch/csrc/fused_ln.cu',
+           'tools/negative_results/fused_ln.py:140', k10[0], *k10[1:],
+           [2, 8, 14400, 320])
+    results['fused_ln'].update(
+        mode='LIEM-gated (temporal norm1)',
+        library='partial: F.layer_norm without the gate')
+    dit = case((2, 9680, 3072), False, False, True)
+    results['fused_ln']['dit'] = sub_record(
+        [2, 9680, 3072], dit[0], *dit[1:], mode='plain (DiT LayerNorms)',
+        library='F.layer_norm: the same function')
+    k11 = case((2, 8, 14400, 320), True, True, True)
+    record('fused_resid_ln', 'cuda', 'star_tpu_torch/csrc/fused_ln.cu',
+           'tools/negative_results/stream_fuse.py:161', k11[0], *k11[1:],
+           [2, 8, 14400, 320])
+    results['fused_resid_ln'].update(
+        mode='LIEM-gated with the residual (temporal norm2)',
+        library='partial: y + resid, then F.layer_norm without the gate')
+    sp = case((16, 14400, 320), False, True, True)
+    results['fused_resid_ln']['spatial'] = sub_record(
+        [16, 14400, 320], sp[0], *sp[1:],
+        mode='plain with the residual (spatial norm2/norm3)',
+        library='y + resid, then F.layer_norm: the same function in two '
+        'calls')
+    for n, c in ((3600, 640), (920, 1280)):
+        shape = [2, 8, n, c]
+        lvl = case(shape, True, False, True)
+        results['fused_ln'][f'c{c}'] = sub_record(shape, lvl[0], *lvl[1:],
+                                                  mode='LIEM-gated')
+        lvl = case(shape, True, True, True)
+        results['fused_resid_ln'][f'c{c}'] = sub_record(
+            shape, lvl[0], *lvl[1:], mode='LIEM-gated with the residual')
+        case(shape, False, True, False, pdt=torch.float32)
+    case((2, 77, 1024), False, False, False)
+    case((2, 9680, 3072), False, False, False, eps=1e-6)
+    torch.cuda.synchronize()
+
+
 # --------------------------------------------------------------------------
 # phase 2b: small models, kernels on the card vs plain versions on the host
 
@@ -741,7 +873,8 @@ def check_small_models(dev) -> dict:
     card = copy.deepcopy(unet).to(dev, torch.bfloat16)
     e_unet, c_unet = card_vs_host(dev, 'UNet+ControlNet [1,8,26,24]', ref,
                                   card, x, tt, y, hint, cfg_pair=True)
-    for k in ('flash_packed', 'temporal_attention', 'fused_gn_silu_tconv3'):
+    for k in ('flash_packed', 'temporal_attention', 'fused_gn_silu_tconv3',
+              'fused_ln', 'fused_resid_ln'):
         assert c_unet.get(k, 0) > 0, (k, c_unet)
 
     vae = randomised(SVDTemporalVAE((32, 32, 64, 512), encoder_layers=1,
@@ -820,7 +953,8 @@ def check_small_cog(dev) -> dict:
     card = copy.deepcopy(dit).to(dev, torch.bfloat16)
     e_dit, c_dit = card_vs_host(dev, 'Cog DiT [2,3,24,32] 592 tokens', ref,
                                 card, *args, tol=COG_DIT_TOL)
-    assert c_dit == {'qk_ln_rope': 4, 'flash_packed': 2}, c_dit
+    assert c_dit == {'qk_ln_rope': 4, 'flash_packed': 2, 'fused_ln': 8}, \
+        c_dit
 
     vae = randomised(CogVideoVAE(ch=32, ch_mult=(1, 2, 2, 4),
                                  num_res_blocks=1, z_channels=4), g)
@@ -944,7 +1078,7 @@ def check_small_train(dev) -> dict:
         f'error {every:.3e} of the largest gradient (tol {GRAD_ALL_TOL}); '
         f'launches {counts}')
     for k in ('flash_packed_lse', 'flash_bwd', 'temporal_attention',
-              'fused_gn_silu_tconv3'):
+              'fused_gn_silu_tconv3', 'fused_ln', 'fused_resid_ln'):
         assert counts.get(k, 0) > 0, (k, counts)
     assert loss_err <= LOSS_TOL and norm_err <= LOSS_TOL, (loss_err,
                                                            norm_err)
@@ -1013,6 +1147,11 @@ def run_pipeline(dev) -> dict:
         f'(expected 76: encoder 20 + two decoder calls of 28), '
         f'upsample_conv2x {launches["upsample_conv2x"]} (expected 6), '
         f'interleave2x2 {launches["interleave2x2"]} (expected 0)')
+    # K10/K11: every UNet call, and CLIP on the prompt and the negative one
+    n = len(unet_calls)
+    assert_launches('clip', launches, {
+        'fused_ln': n * LN_PER_CFG_STEP['fused_ln'] + 2 * LN_PER_TEXT_ENCODE,
+        'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln']})
     return dict(models=models, pipe=pipe, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), unet_calls=len(unet_calls),
                 peak_gb=peak_gb, out_mean=float(out.mean()),
@@ -1041,6 +1180,7 @@ def time_cfg_step(dev, models, profile: str | None) -> dict:
         res = dict(ms=ms, launches=per_step)
         log(f'CFG UNet+ControlNet step [8f, 90x160, cfg_pair, bf16]: '
             f'{ms:.1f} ms; launches per step {per_step}')
+        assert_launches('CFG step', per_step, LN_PER_CFG_STEP)
         if profile:
             res['profile'] = profile_step(step, profile)
     return res
@@ -1056,6 +1196,8 @@ KERNEL_FAMILIES = (
     ('K6/K7 conv tile', ('conv_tile_kernel',)),
     ('K8 interleave', ('interleave2x2',)),
     ('K9 qk-LN+RoPE', ('qk_ln_rope',)),
+    ('K10 LayerNorm', ('star_ln_kernel',)),
+    ('K11 residual add + LayerNorm', ('star_resid_ln_kernel',)),
     ('GEMMs and library convs', ('nvjet', 'gemm', 'gemv', 'xmma', 'cutlass',
                                  'convolve', 'cudnn')),
     ('reductions', ('reduce_kernel',)),
@@ -1202,6 +1344,7 @@ def run_train(dev, models) -> dict:
         missing = [k for k in TRAIN_PATH_KERNELS if counts[k] <= 0]
         assert not missing, f'kernels not launched in the train step: ' \
             f'{missing}'
+        assert_launches(f'train step {i}', counts, LN_PER_TRAIN_STEP)
         if i:
             times.append(ms)
             per_step.append(counts)
@@ -1303,6 +1446,7 @@ def time_dit_step(dev, models, profile: str | None) -> dict:
         res = dict(ms=ms, launches=per_step)
         log(f'DiT CFG step [2, 7, 60, 90, 32], 9680 tokens, bf16: '
             f'{ms:.1f} ms; launches per step {per_step}')
+        assert_launches('DiT step', per_step, LN_PER_DIT_STEP)
         if profile:
             root, ext = os.path.splitext(profile)
             res['profile'] = profile_step(step, f'{root}_dit{ext or ".txt"}')

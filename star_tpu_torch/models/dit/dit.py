@@ -12,10 +12,11 @@ As in the JAX package: channels-last latents [B, T, H, W, C]; the residual
 stream is carried padded to a multiple of 16 tokens with the dead tail
 masked out of attention (kv_valid); the q/k prologue is K9 (qk_ln_rope),
 with the softmax scale * log2(e) folded into q's LN affine so that K1 runs
-prescaled. The RoPE tables are host numpy in the half-split basis; K9 takes
-them as [S, 64] rows (identity at text and tail rows) instead of the JAX
-package's head-tiled [S, H*64] copy. The JAX package scans one layer over
-stacked parameters; here the layers are an nn.ModuleList (`layers`), and
+prescaled; the stream's LayerNorms are K10 (fused_ln). The RoPE tables are
+host numpy in the half-split basis; K9 takes them as [S, 64] rows
+(identity at text and tail rows) instead of the JAX package's head-tiled
+[S, H*64] copy. The JAX package scans one layer over stacked
+parameters; here the layers are an nn.ModuleList (`layers`), and
 convert/from_flax.py unstacks the scanned tree into it.
 """
 
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import dot_product_attention_packed
-from ...ops.norms import layer_norm
+from ...ops.fused_ln import fused_ln
 from ...ops.qk_ln_rope import LOG2E, qk_ln_rope
 from ..layers import Conv2d, zero_
 from ..unet.blocks import silu32, sinusoidal_embedding
@@ -178,14 +179,16 @@ class DiTLayer(nn.Module):
         (sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp, t_sh_msa, t_sc_msa,
          t_g_msa, t_sh_mlp, t_sc_mlp, t_g_mlp) = \
             self.adaln(emb_act).chunk(12, dim=-1)
-        input_ln = lambda x: layer_norm(x, self.input_ln_scale,
-                                        self.input_ln_bias, 1e-5)
-        post_ln = lambda x: layer_norm(x, self.post_ln_scale,
-                                       self.post_ln_bias, 1e-5)
+        post_ln = lambda x: fused_ln(x, self.post_ln_scale,
+                                     self.post_ln_bias, 1e-5)
 
         text, img = h[:, :tl], h[:, tl:]
-        img_in = modulate(input_ln(img), sh_msa, sc_msa)
-        text_in = modulate(input_ln(text), t_sh_msa, t_sc_msa)
+        # input_ln is one K10 over the whole stream (rows are independent);
+        # post_ln one per segment, since the gated residual adds below
+        # leave text and image in tensors of their own
+        hn = fused_ln(h, self.input_ln_scale, self.input_ln_bias, 1e-5)
+        img_in = modulate(hn[:, tl:], sh_msa, sc_msa)
+        text_in = modulate(hn[:, :tl], t_sh_msa, t_sc_msa)
         # the real image tokens are the first n_img rows; the dead tail
         # bypasses LIEM
         img_tail, img_in = img_in[:, n_img:], img_in[:, :n_img]
@@ -291,10 +294,11 @@ class CogVideoDiT(nn.Module):
         for layer in self.layers:
             h = layer(h, emb_act, cos, sin, (t, hp, wp))
 
-        h = layer_norm(h, self.pre_final_ln_scale, self.pre_final_ln_bias,
-                       1e-5)
+        # both final norms run over the whole stream (one K10 each) and the
+        # image rows are taken after
+        h = fused_ln(h, self.pre_final_ln_scale, self.pre_final_ln_bias, 1e-5)
+        h = fused_ln(h, self.final_ln_scale, self.final_ln_bias, 1e-6)
         img = h[:, self.text_length:s_real]
-        img = layer_norm(img, self.final_ln_scale, self.final_ln_bias, 1e-6)
         f_shift, f_scale = self.final_adaln(emb_act).chunk(2, dim=-1)
         img = self.final_linear(modulate(img, f_shift, f_scale))
         # unpatchify: [B, T*hp*wp, p*p*Cz] -> [B, T, H, W, Cz]

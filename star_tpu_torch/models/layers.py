@@ -11,7 +11,8 @@ import torch
 from torch import nn
 
 from ..ops.conv3x3 import conv2d_nhwc
-from ..ops.norms import group_norm, layer_norm
+from ..ops.fused_ln import fused_ln
+from ..ops.norms import group_norm
 
 
 class Conv2d(nn.Conv2d):
@@ -47,12 +48,15 @@ class GroupNorm(NormParams):
 
 
 class LayerNorm(NormParams):
+    """LayerNorm over the last axis through kernel K10 (fp32 statistics);
+    the UNet's transformer blocks pass its parameters to K11 instead."""
+
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__(channels)
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        return fused_ln(x, self.weight, self.bias, self.eps)
 
 
 class TConvParams(nn.Module):

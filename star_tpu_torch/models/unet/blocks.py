@@ -4,8 +4,10 @@
 Channels-last throughout: the spatial stream is [B*F, H, W, C], the
 temporal stream [B, F, H*W, C]. Attention goes through ops.attention
 (flash kernel K1 for long self-attention, plain for the text
-cross-attention), frame attention through K4, and the temporal conv chain
-through the fused GN+SiLU+tconv kernel K5 with threaded statistics.
+cross-attention), frame attention through K4, the temporal conv chain
+through the fused GN+SiLU+tconv kernel K5 with threaded statistics, and
+the transformer streams' LayerNorms through K10 (the TemporalLIEM-gated
+norm1) and K11 (each attention's residual add fused with the next norm).
 Dropout is not ported: the blocks run the deterministic mode, the one
 inference and training (`deterministic=True`) take.
 """
@@ -18,7 +20,8 @@ from torch import nn
 
 from ...ops.attention import dot_product_attention_packed
 from ...ops.fused_temporal_conv import fused_gn_silu_tconv3
-from ...ops.norms import gated_layer_norm, liem_layer_norm
+from ...ops.fused_ln import fused_ln, fused_resid_ln
+from ...ops.norms import gated_layer_norm
 from ...ops.temporal_attention import temporal_attention
 from ...ops.upsample_conv import upsample_conv2x_cropped
 from ..layers import (Conv2d, GroupNorm, LayerNorm, NormParams, TConvParams,
@@ -89,8 +92,8 @@ class SpatialLIEM(nn.Module):
 
 
 class TemporalLIEM(nn.Module):
-    """Temporal LIEM gate weights: the [2] vector (w_max, w_mean) that
-    liem_layer_norm folds into the LayerNorm."""
+    """Temporal LIEM gate weights: the [2] vector (w_max, w_mean) that K10
+    and K11 fold into the LayerNorm."""
 
     def __init__(self):
         super().__init__()
@@ -102,8 +105,10 @@ class TemporalLIEM(nn.Module):
 
 class SpatialTransformerBlock(nn.Module):
     """LIEM gate -> self-attn -> text cross-attn -> GEGLU FF; residuals add
-    to the ungated stream. With cfg_split, x carries one copy of a CFG pair
-    and is tiled right before the cross-attention."""
+    to the ungated stream, each attention's add fused with the next
+    LayerNorm (K11). With cfg_split, x carries one copy of a CFG pair and
+    is tiled right before the cross-attention: K11 runs on the half batch
+    and both of its outputs are tiled, the two halves being identical."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  context_dim: int):
@@ -120,12 +125,15 @@ class SpatialTransformerBlock(nn.Module):
     def forward(self, x, context, h: int, w: int, cfg_split: bool = False):
         bf = x.shape[0]
         g = self.local1(x.reshape(bf, h, w, self.dim))
-        x = self.attn1(gated_layer_norm(x, self.norm1.weight, self.norm1.bias,
-                                        g.reshape(bf, h * w, 1))) + x
+        y = self.attn1(gated_layer_norm(x, self.norm1.weight, self.norm1.bias,
+                                        g.reshape(bf, h * w, 1)))
+        n2, x = fused_resid_ln(y, self.norm2.weight, self.norm2.bias, x,
+                               eps=self.norm2.eps)
         if cfg_split:
-            x = torch.cat([x, x], dim=0)
-        x = self.attn2(self.norm2(x), context) + x
-        return self.ff(self.norm3(x)) + x
+            n2, x = torch.cat([n2, n2], dim=0), torch.cat([x, x], dim=0)
+        n3, x = fused_resid_ln(self.attn2(n2, context), self.norm3.weight,
+                               self.norm3.bias, x, eps=self.norm3.eps)
+        return self.ff(n3) + x
 
 
 class TemporalAttentionInplace(nn.Module):
@@ -150,7 +158,9 @@ class TemporalAttentionInplace(nn.Module):
 
 class TemporalTransformerBlock(nn.Module):
     """Two LIEM-gated temporal self-attentions and a GEGLU FF, on
-    [B, F, N, C]; each gate folds into its LayerNorm (liem_layer_norm)."""
+    [B, F, N, C]; each gate folds into its LayerNorm: norm1 is K10 gated,
+    and each attention's residual add runs with the next norm as K11
+    (gated for norm2)."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int):
         super().__init__()
@@ -164,13 +174,14 @@ class TemporalTransformerBlock(nn.Module):
         self.ff = FeedForwardGEGLU(dim)
 
     def forward(self, x):
-        gw1 = self.local1.gate_weights()
-        x = self.attn1(liem_layer_norm(x, self.norm1.weight, self.norm1.bias,
-                                       gw1)) + x
-        gw2 = self.local2.gate_weights()
-        x = self.attn2(liem_layer_norm(x, self.norm2.weight, self.norm2.bias,
-                                       gw2)) + x
-        return self.ff(self.norm3(x)) + x
+        n1 = fused_ln(x, self.norm1.weight, self.norm1.bias,
+                      gate_w=self.local1.gate_weights())
+        n2, x = fused_resid_ln(self.attn1(n1), self.norm2.weight,
+                               self.norm2.bias, x,
+                               gate_w=self.local2.gate_weights())
+        n3, x = fused_resid_ln(self.attn2(n2), self.norm3.weight,
+                               self.norm3.bias, x, eps=self.norm3.eps)
+        return self.ff(n3) + x
 
 
 class SpatialTransformer(nn.Module):

@@ -10,18 +10,21 @@ wrappers, their plain PyTorch versions and launch counters:
   upsample_conv         K7 (fused nearest-2x + 3x3 conv) and K8 (2x2 phase
                         interleave)
   qk_ln_rope            K9 (fused qk-LayerNorm + half-split RoPE)
+  fused_ln              K10 (LayerNorm, optionally LIEM-gated) and K11
+                        (residual add + [LIEM gate +] LayerNorm)
 
-K1/K2-d64 (with K3), K4 and K5 are differentiable through
+K1/K2-d64 (with K3), K4, K5, K10 and K11 are differentiable through
 torch.autograd.Function; K2-d512, K6, K7, K8 and K9 have no backward
 and raise under grad.
 """
 
-from . import (conv3x3, flash_attention, fused_temporal_conv, qk_ln_rope,
-               temporal_attention, upsample_conv)
+from . import (conv3x3, flash_attention, fused_ln, fused_temporal_conv,
+               qk_ln_rope, temporal_attention, upsample_conv)
 
 KERNELS = ('flash_packed', 'flash_packed_lse', 'flash_bwd', 'flash_d512',
            'temporal_attention', 'fused_gn_silu_tconv3', 'conv3x3',
-           'upsample_conv2x', 'interleave2x2', 'qk_ln_rope')
+           'upsample_conv2x', 'interleave2x2', 'qk_ln_rope', 'fused_ln',
+           'fused_resid_ln')
 
 
 def launch_counts() -> dict[str, int]:
@@ -35,7 +38,9 @@ def launch_counts() -> dict[str, int]:
             'conv3x3': conv3x3.LAUNCHES,
             'upsample_conv2x': upsample_conv.UPSAMPLE_LAUNCHES,
             'interleave2x2': upsample_conv.INTERLEAVE_LAUNCHES,
-            'qk_ln_rope': qk_ln_rope.LAUNCHES}
+            'qk_ln_rope': qk_ln_rope.LAUNCHES,
+            'fused_ln': fused_ln.LN_LAUNCHES,
+            'fused_resid_ln': fused_ln.RESID_LN_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -49,3 +54,5 @@ def reset_launch_counts() -> None:
     upsample_conv.UPSAMPLE_LAUNCHES = 0
     upsample_conv.INTERLEAVE_LAUNCHES = 0
     qk_ln_rope.LAUNCHES = 0
+    fused_ln.LN_LAUNCHES = 0
+    fused_ln.RESID_LN_LAUNCHES = 0

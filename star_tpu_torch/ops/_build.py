@@ -63,6 +63,12 @@ _SIGNATURES = {
     'star_interleave2x2': [P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, cos, sin, scale, bias, out, rows, S, H, eps, stream
     'star_qk_ln_rope': [P, P, P, P, P, P, L, I, I, Fl, P],
+    # x, scale, bias, gate_w (or null), params bf16, out, rows, C, eps,
+    # stream
+    'star_fused_ln': [P, P, P, P, I, P, L, I, Fl, P],
+    # y, resid, scale, bias, gate_w (or null), params bf16, out, xr, rows,
+    # C, eps, stream
+    'star_fused_resid_ln': [P, P, P, P, P, I, P, P, L, I, Fl, P],
 }
 
 

@@ -4,6 +4,12 @@
 Statistics accumulate in float32 even under bf16 compute; the bulk apply
 runs in the compute dtype with the subtract-first form
 (x - mean) * a + b, exactly as the JAX package does.
+
+The models' LayerNorms run the kernels K10 and K11 (ops/fused_ln.py),
+which apply in fp32 and round once; `layer_norm` and `liem_layer_norm`
+here are the JAX package's eager functions, kept as its counterparts.
+`gated_layer_norm` serves the SpatialLIEM-gated norm1, which no kernel
+computes.
 """
 
 from __future__ import annotations

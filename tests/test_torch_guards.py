@@ -507,14 +507,19 @@ def test_qk_ln_rope_launcher_refuses_what_the_kernel_does_not_take(case):
 def test_dit_layer_reaches_k9_twice_and_k1_once(monkeypatch):
     """A DiT layer on CUDA tensors at >= 512 tokens: K9 on q (softmax scale
     * log2(e) folded in) and on k (fold 1), then K1 prescaled with the dead
-    tail masked by kv_valid — no plain version."""
+    tail masked by kv_valid — no plain version; and K10 for input_ln over
+    the whole stream and for post_ln on the image and text segments."""
     qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
     fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
+    fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
     from star_tpu_torch.models.dit.dit import DiTLayer, rope_tables
     calls = []
     monkeypatch.setattr(qr, 'qk_ln_rope_plain', _refuse)
     monkeypatch.setattr(fa, 'flash_attention_packed_plain', _refuse)
     monkeypatch.setattr(fa, 'attention_plain', _refuse)
+    monkeypatch.setattr(fl, 'fused_ln_plain', _refuse)
+    monkeypatch.setattr(fl, '_launch_ln', lambda x, sc, bi, eps, gw: (
+        calls.append(('k10', x.shape[1])), x)[1])
     monkeypatch.setattr(qr, '_launch', lambda x, sc, bi, cos, sin, h, eps,
                         fold: (calls.append(('k9', fold)), x)[1])
     monkeypatch.setattr(fa, '_launch', lambda q, k, v, h, d, c, kv,
@@ -525,7 +530,8 @@ def test_dit_layer_reaches_k9_twice_and_k1_once(monkeypatch):
     with torch.no_grad():
         out = layer(_fake(torch.randn(2, s_pad, 128)), torch.randn(2, 16),
                     cos, sin, grid)
-    assert calls == [('k9', fa.LOG2E / 8.0), ('k9', 1.0), ('k1', 1.0, 520)]
+    assert calls == [('k10', s_pad), ('k9', fa.LOG2E / 8.0), ('k9', 1.0),
+                     ('k1', 1.0, 520), ('k10', s_pad - 8), ('k10', 8)]
     assert out.shape == (2, s_pad, 128)
 
 
@@ -554,3 +560,215 @@ def test_qk_ln_rope_on_the_card():
     with pytest.raises(ValueError):
         qr.qk_ln_rope(x.transpose(0, 1).contiguous().transpose(0, 1), sc,
                       bi, cos, sin, 6)
+
+
+# ------------------------------------------------------------- K10, K11
+
+
+def _ln_args(x, gated, resid):
+    """(y, scale, bias, resid, gate_w) of one K10/K11 call."""
+    c = x.shape[-1]
+    return (x, torch.ones(c), torch.zeros(c),
+            torch.ones_like(x) if resid else None,
+            torch.tensor([0.5, -0.5]) if gated else None)
+
+
+@pytest.mark.parametrize('kind', ['k10', 'k10_gated', 'k11', 'k11_gated'])
+def test_fused_ln_launches_for_cuda_tensors_and_plain_for_cpu(monkeypatch,
+                                                              kind):
+    """K10's and K11's wrappers: a CUDA tensor reaches its launcher and
+    never a plain version; a CPU tensor gets the plain version and never
+    builds or loads the kernel library."""
+    fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
+    from star_tpu_torch.ops import _build
+    gated, resid = kind.endswith('gated'), kind.startswith('k11')
+    launched = []
+    monkeypatch.setattr(fl, '_launch_ln', lambda x, sc, bi, eps, gw: (
+        launched.append(('k10', gw is not None)), x)[1])
+    monkeypatch.setattr(fl, '_launch_resid_ln', lambda y, r, sc, bi, eps,
+                        gw: (launched.append(('k11', gw is not None)),
+                             (y, y))[1])
+    monkeypatch.setattr(fl, 'fused_ln_plain', _refuse)
+    monkeypatch.setattr(fl, 'fused_resid_ln_plain', _refuse)
+    y, sc, bi, r, gw = _ln_args(_fake(torch.randn(2, 5, 128)), gated, resid)
+    if resid:
+        fl.fused_resid_ln(y, sc, bi, _fake(r), gw)
+    else:
+        fl.fused_ln(y, sc, bi, gate_w=gw)
+    assert launched == [(kind[:3], gated)]
+    monkeypatch.undo()
+    for fn in ('_launch_ln', '_launch_resid_ln'):
+        monkeypatch.setattr(fl, fn, _refuse)
+    monkeypatch.setattr(_build, 'lib', _refuse)
+    monkeypatch.setattr(_build, 'build', _refuse)
+    y, sc, bi, r, gw = _ln_args(torch.randn(2, 5, 128), gated, resid)
+    if resid:
+        got = fl.fused_resid_ln(y, sc, bi, r, gw)
+        want = fl.fused_resid_ln_plain(y, sc, bi, r, gw)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        got, want = got[0], want[0]
+    else:
+        got = fl.fused_ln(y, sc, bi, gate_w=gw)
+        want = fl.fused_ln_plain(y, sc, bi, gate_w=gw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('kind', ['k10', 'k11'])
+def test_fused_ln_under_grad_launches_forward_and_recomputes_plain(
+        monkeypatch, kind):
+    """An input requiring grad goes through the autograd Function: the
+    kernel launches in the forward, and the plain version runs only in
+    the backward (the recompute the JAX custom VJPs do), giving gradients
+    to every input, the gate weights included."""
+    fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
+    events, phase = [], ['forward']
+    monkeypatch.setattr(fl, '_launch_ln', lambda x, sc, bi, eps, gw: (
+        events.append('k10'), _fake(torch.zeros(x.shape)))[1])
+    monkeypatch.setattr(fl, '_launch_resid_ln', lambda y, r, sc, bi, eps,
+                        gw: (events.append('k11'),
+                             (_fake(torch.zeros(y.shape)),
+                              _fake(torch.zeros(y.shape))))[1])
+    for plain in ('fused_ln_plain', 'fused_resid_ln_plain'):
+        real = getattr(fl, plain)
+
+        def run(*a, _real=real, _name=plain, **k):
+            assert phase[0] == 'backward', f'{_name} ran in the forward'
+            events.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(fl, plain, run)
+    leaf = lambda t: _fake(t, requires_grad=True) if t.ndim == 3 else \
+        t.requires_grad_()
+    y, sc, bi, r, gw = (None if t is None else leaf(t) for t in _ln_args(
+        torch.randn(2, 5, 128), True, kind == 'k11'))
+    if kind == 'k11':
+        out, xr = fl.fused_resid_ln(y, sc, bi, r, gw)
+        outs, inputs = [out, xr], (y, r, sc, bi, gw)
+    else:
+        outs, inputs = [fl.fused_ln(y, sc, bi, gate_w=gw)], (y, sc, bi, gw)
+    phase[0] = 'backward'
+    grads = torch.autograd.grad([o.float().sum() for o in outs], inputs)
+    assert events == ([kind, 'fused_resid_ln_plain'] if kind == 'k11'
+                      else [kind, 'fused_ln_plain'])
+    assert all(g.shape == a.shape for g, a in zip(grads, inputs))
+
+
+def _fused_ln_launch_case(case):
+    """(launcher, args) of one input K10/K11 do not take."""
+    fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
+    bf = lambda *s: _fake(torch.zeros(*s, dtype=torch.bfloat16))
+    p = lambda c: (torch.ones(c), torch.zeros(c))
+    return {
+        'cpu': (fl._launch_ln, (torch.zeros(2, 5, 128, dtype=torch.bfloat16),
+                                *p(128), 1e-5, None)),
+        'fp32': (fl._launch_ln, (_fake(torch.zeros(2, 5, 128)), *p(128),
+                                 1e-5, None)),
+        'strided': (fl._launch_ln, (bf(2, 128, 5).transpose(1, 2), *p(5),
+                                    1e-5, None)),
+        'c96': (fl._launch_ln, (bf(2, 5, 96), *p(96), 1e-5, None)),
+        'c4160': (fl._launch_ln, (bf(2, 5, 4160), *p(4160), 1e-5, None)),
+        'scale_shape': (fl._launch_ln, (bf(2, 5, 128), *p(64), 1e-5, None)),
+        'gate_3': (fl._launch_ln, (bf(2, 5, 128), *p(128), 1e-5,
+                                   torch.zeros(3))),
+        'resid_shape': (fl._launch_resid_ln, (bf(2, 5, 128), bf(2, 4, 128),
+                                              *p(128), 1e-5, None)),
+        'resid_fp32': (fl._launch_resid_ln, (
+            bf(2, 5, 128), _fake(torch.zeros(2, 5, 128)), *p(128), 1e-5,
+            None)),
+    }[case]
+
+
+@pytest.mark.parametrize('case', ['cpu', 'fp32', 'strided', 'c96', 'c4160',
+                                  'scale_shape', 'gate_3', 'resid_shape',
+                                  'resid_fp32'])
+def test_fused_ln_launchers_refuse_what_the_kernels_do_not_take(case):
+    """The K10/K11 launchers check device, dtype, contiguity, widths and
+    parameter shapes before building anything."""
+    launch, args = _fused_ln_launch_case(case)
+    with pytest.raises(ValueError):
+        launch(*args)
+
+
+@pytest.mark.parametrize('block', ['temporal', 'spatial', 'spatial_cfg_split'])
+def test_unet_transformer_blocks_reach_k10_and_k11(monkeypatch, block):
+    """On CUDA tensors: a TemporalTransformerBlock runs K10 gated (norm1),
+    K11 gated with the residual (norm2) and K11 with the residual (norm3);
+    a SpatialTransformerBlock K11 twice (norm2, norm3), the first at the
+    half batch under cfg_split. No plain version of either."""
+    fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
+    ta = importlib.import_module('star_tpu_torch.ops.temporal_attention')
+    from star_tpu_torch.models.unet.blocks import (SpatialTransformerBlock,
+                                                   TemporalTransformerBlock)
+    calls = []
+    monkeypatch.setattr(fl, 'fused_ln_plain', _refuse)
+    monkeypatch.setattr(fl, 'fused_resid_ln_plain', _refuse)
+    monkeypatch.setattr(fl, '_launch_ln', lambda x, sc, bi, eps, gw: (
+        calls.append(('k10', gw is not None, x.shape[0])), x)[1])
+    monkeypatch.setattr(fl, '_launch_resid_ln', lambda y, r, sc, bi, eps,
+                        gw: (calls.append(('k11', gw is not None,
+                                           y.shape[0])), (y, y + r))[1])
+    monkeypatch.setattr(ta, '_launch', lambda q, k, v, h, scale: q)
+    with torch.no_grad():
+        if block == 'temporal':
+            m = TemporalTransformerBlock(64, 1, 64)
+            out = m(_fake(torch.randn(2, 4, 6, 64)))
+            assert out.shape == (2, 4, 6, 64)
+            want = [('k10', True, 2), ('k11', True, 2), ('k11', False, 2)]
+        else:
+            split = block == 'spatial_cfg_split'
+            m = SpatialTransformerBlock(64, 1, 64, 32)
+            out = m(_fake(torch.randn(3, 12, 64)),
+                    torch.randn(6 if split else 3, 7, 32), 3, 4,
+                    cfg_split=split)
+            assert out.shape == (6 if split else 3, 12, 64)
+            want = [('k11', False, 3), ('k11', False, 6 if split else 3)]
+    assert calls == want
+
+
+@pytest.mark.cuda
+def test_fused_ln_on_the_card():
+    """On a card: K10 and K11 agree with their plain versions (relative, as
+    chip_smoke.py holds them; xr bit for bit), gated and not, with bf16 and
+    fp32 parameters; a wrong dtype or width raises instead of falling back;
+    and an input requiring grad goes through the Function, whose gradients
+    match autograd through the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    size = lambda *s: torch.exp(torch.rand(*s, 1, generator=g,
+                                           device='cuda') * -7)
+    bf = lambda *s: (torch.randn(*s, generator=g, device='cuda')
+                     * size(*s[:-1])).bfloat16()
+
+    def agree(a, b):
+        a, b = a.float(), b.float()
+        return bool((a - b).abs().max() <= 2e-2 * b.abs().max()
+                    and (a - b).norm() <= 1e-2 * b.norm())
+    for c, pdt in ((320, torch.bfloat16), (1280, torch.float32),
+                   (3072, torch.bfloat16), (640, torch.float32)):
+        x, r = bf(3, 37, c), bf(3, 37, c)
+        sc = (torch.rand(c, generator=g, device='cuda') + 0.5).to(pdt)
+        bi = (torch.randn(c, generator=g, device='cuda') * 0.1).to(pdt)
+        for gw in (None, torch.tensor([1.5, -2.0], device='cuda').to(pdt)):
+            assert agree(fl.fused_ln(x, sc, bi, 1e-5, gw),
+                         fl.fused_ln_plain(x, sc, bi, 1e-5, gw))
+            out, xr = fl.fused_resid_ln(x, sc, bi, r, gw)
+            ref, xr_ref = fl.fused_resid_ln_plain(x, sc, bi, r, gw)
+            assert agree(out, ref) and torch.equal(xr, xr_ref)
+    with pytest.raises(ValueError):
+        fl.fused_ln(x.float(), sc, bi)
+    with pytest.raises(ValueError):
+        fl.fused_ln(bf(2, 5, 96), torch.ones(96, device='cuda'),
+                    torch.zeros(96, device='cuda'))
+    before = fl.RESID_LN_LAUNCHES
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, r, sc.float(), bi.float(), gw.float())]
+    got = torch.autograd.grad(fl.fused_resid_ln(
+        leaves[0], leaves[2], leaves[3], leaves[1], leaves[4])[0].float()
+        .square().sum(), leaves)
+    assert fl.RESID_LN_LAUNCHES == before + 1
+    want = torch.autograd.grad(fl.fused_resid_ln_plain(
+        leaves[0], leaves[2], leaves[3], leaves[1], leaves[4])[0].float()
+        .square().sum(), leaves)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and agree(a, b)

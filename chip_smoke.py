@@ -10,7 +10,9 @@
    conv, K7 fused nearest-2x+3x3 conv, K8 2x2 phase interleave, K9 fused
    qk-LayerNorm+RoPE, K10 LayerNorm (optionally LIEM-gated), K11 residual
    add + LayerNorm; K1 also at the CogVideoX DiT's 48 heads, 9680
-   tokens, dead key tail and prescaled q) against its plain PyTorch
+   tokens, dead key tail and prescaled q, and at the edges of its tiles;
+   K2 `with_l` and K3 also at the DiT's 9680 tokens and 48 heads; K10 and
+   K11 at C = 320, 640, 1280 and 3072) against its plain PyTorch
    version at the shapes the main paths give it, and times kernel, plain
    version and one PyTorch library call with CUDA events; then runs a
    small-width UNet+ControlNet and VAE, and a small CogVideoX DiT and
@@ -94,17 +96,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events."""
+def cuda_ms(fn, reps: int = 5, warmup: int = 1, graph: bool = False) -> float:
+    """Mean milliseconds of fn() on the card, by CUDA events. With `graph`,
+    `reps` calls are captured in one CUDA graph and its replay is timed, so
+    that a kernel shorter than its wrapper's host work is timed on the
+    device and not at the rate the host enqueues it."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(reps)]
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -157,6 +169,13 @@ def agrees(what: str, pairs) -> tuple[float, float, float]:
 # phase 2: each kernel against its plain version at main-path shapes
 
 
+# K1's edge shapes: (B, S, H*64, kv_valid or None, prescaled)
+K1_EDGE_CASES = ((2, 1000, 320, 777, False), (2, 1000, 320, 768, False),
+                 (2, 1000, 320, None, True), (2, 100, 320, None, False),
+                 (2, 1000, 640, None, False), (2, 1000, 1280, 999, False),
+                 (1, 1000, 3072, 777, True), (1, 9680, 320, 9676, True))
+
+
 def check_kernels(dev) -> dict[str, dict]:
     import torch
     import torch.nn.functional as F
@@ -196,16 +215,19 @@ def check_kernels(dev) -> dict[str, dict]:
         agrees(f'K1 [{bsz},{s},{c}]', [(
             fa.flash_attention_packed(q, k, v, h),
             fa.flash_attention_packed_plain(q, k, v, h, 0.125))])
-    # kv_valid and prescaled variants of K1's contract
-    q, k, v = (randn(2, 1000, 320) for _ in range(3))
-    agrees('K1 kv_valid=777 [2,1000,320]', [(
-        fa.flash_attention_packed(q, k, v, 5, kv_valid=777),
-        fa.flash_attention_packed_plain(q, k, v, 5, 0.125, kv_valid=777))])
-    qs = (q.float() * (0.125 * fa.LOG2E)).to(torch.bfloat16)
-    agrees('K1 prescaled [2,1000,320]', [(
-        fa.flash_attention_packed(qs, k, v, 5, prescaled=True),
-        fa.flash_attention_packed_plain(qs, k, v, 5, 0.125,
-                                        prescaled=True))])
+    # the edges of K1's tiles (128 query rows a block, 128 keys a tile):
+    # S not a multiple of 128, S below one tile, kv_valid inside a tile and
+    # on a tile boundary, 5 to 48 heads, and a prescaled q
+    for (bsz, s, c, kv, pre) in K1_EDGE_CASES:
+        h = c // 64
+        q, k, v = (randn(bsz, s, c) for _ in range(3))
+        if pre:
+            q = (q.float() * (0.125 * fa.LOG2E)).to(torch.bfloat16)
+        agrees(f'K1 [{bsz},{s},{c}] kv_valid={kv} prescaled={pre}', [(
+            fa.flash_attention_packed(q, k, v, h, kv_valid=kv,
+                                      prescaled=pre),
+            fa.flash_attention_packed_plain(q, k, v, h, 0.125, kv_valid=kv,
+                                            prescaled=pre))])
 
     bsz, s, c, h = 16, 14400, 320, 5
     q, k, v = (randn(bsz, s, c) for _ in range(3))
@@ -225,7 +247,7 @@ def check_kernels(dev) -> dict[str, dict]:
     to4 = lambda t: t.view(bsz, s, h, 64).transpose(1, 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         to4(q), to4(k), to4(v)))
-    record('flash_packed', 'cuda', 'star_tpu_torch/csrc/flash_fwd.cu',
+    record('flash_packed', 'cuda', 'star_tpu_torch/csrc/flash_fwd_sm90.cu',
            'star_tpu/ops/flash_attention.py:419', agree, ms, plain_ms,
            4.0 * bsz * h * s * s * 64, 4 * q.numel() * 2, lib_ms,
            [bsz, s, c])
@@ -549,6 +571,24 @@ def check_train_kernels(dev, randn, record, results) -> None:
                                            (got[1][:, :777], want[1]),
                                            (got[2][:, :777], want[2])])
         assert all(float(t[:, 777:].abs().max()) == 0.0 for t in got[1:])
+    # the DiT's attention shape: 9680 tokens, 48 heads, the dead key tail
+    # of its padded stream (the plain versions one head or 8 heads at a
+    # time: the fp32 logits of 48 heads would take 18 GB)
+    s, c, h, kv = 9680, 3072, 48, 9676
+    q, k, v, do = (randn(1, s, c) for _ in range(4))
+    what = f'[1,{s},{c}] 48 heads kv_valid={kv}'
+    o, lse = lse_fwd(q, k, v, h, kv)
+    o_ref, lse_ref = packed_plain_chunked(q, k, v, h, kv, prescaled=False,
+                                          return_lse=True)
+    agrees(f'K2 with_l {what}', [(o, o_ref)])
+    lse_agrees(f'K2 with_l {what}', lse, lse_ref)
+    del o_ref, lse_ref
+    got = fa._launch_bwd(q, k, v, o, lse, do, h, 0.125, kv)
+    want = bwd_plain_chunked(q, k[:, :kv], v[:, :kv], o, lse, do, h, 0.125)
+    agrees(f'K3 {what}', [(got[0], want[0]), (got[1][:, :kv], want[1]),
+                          (got[2][:, :kv], want[2])])
+    assert all(float(t[:, kv:].abs().max()) == 0.0 for t in got[1:])
+    del q, k, v, do, o, lse, got, want
     # the autograd Function end to end against autograd through the plain
     # attention
     q, k, v, do = (randn(2, 3680, 640) for _ in range(4))
@@ -586,7 +626,8 @@ def check_train_kernels(dev, randn, record, results) -> None:
             qg, kg, vg))
     log(f'lse forward [{bsz},{s},{c}]: {fwd_ms:.3f} ms against K1 without '
         f'lse {k1_ms:.3f} ms in the same call')
-    record('flash_packed_lse', 'cuda', 'star_tpu_torch/csrc/flash_fwd.cu',
+    record('flash_packed_lse', 'cuda',
+           'star_tpu_torch/csrc/flash_fwd_sm90.cu',
            'star_tpu/ops/flash_attention.py:256', agree_f, fwd_ms,
            plain_fwd_ms, 4.0 * bsz * h * s * s * 64,
            4 * q.numel() * 2 + 4 * bsz * h * s, lib_fwd_ms, [bsz, s, c])
@@ -618,21 +659,28 @@ def check_train_kernels(dev, randn, record, results) -> None:
     torch.cuda.synchronize()
 
 
-def packed_plain_chunked(q, k, v, heads: int, kv_valid: int):
-    """flash_attention_packed_plain of a prescaled q, one batch row and 8
-    heads at a time: the fp32 logits of all 48 heads of one row at 9680
-    tokens would take 18 GB."""
+def packed_plain_chunked(q, k, v, heads: int, kv_valid: int,
+                         prescaled: bool = True, return_lse: bool = False):
+    """flash_attention_packed_plain (of a prescaled q by default), one batch
+    row and 8 heads at a time: the fp32 logits of all 48 heads of one row
+    at 9680 tokens would take 18 GB. With `return_lse` also the lse
+    [B, heads, Sq]."""
     import torch
     from star_tpu_torch.ops import flash_attention as fa
     head_chunk = 8
     out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0], heads, q.shape[1], device=q.device)
     for bi in range(q.shape[0]):
         for h0 in range(0, heads, head_chunk):
             cols = slice(h0 * 64, (h0 + head_chunk) * 64)
-            out[bi:bi + 1, :, cols] = fa.flash_attention_packed_plain(
+            res = fa.flash_attention_packed_plain(
                 *(t[bi:bi + 1, :, cols] for t in (q, k, v)), head_chunk,
-                0.125, kv_valid=kv_valid, prescaled=True)
-    return out
+                0.125, kv_valid=kv_valid, prescaled=prescaled,
+                return_lse=return_lse)
+            if return_lse:
+                res, lse[bi:bi + 1, h0:h0 + head_chunk] = res
+            out[bi:bi + 1, :, cols] = res
+    return (out, lse) if return_lse else out
 
 
 def check_dit_kernels(dev, g, randn, record, results) -> None:
@@ -765,9 +813,11 @@ def check_ln_kernels(dev, g, record, results) -> None:
         del out, ref
         if not timed:
             return None
-        ms = cuda_ms(run, reps=20)
+        # the kernel and the library call in CUDA graphs: at 1280 channels
+        # and above the kernel takes less time than its wrapper's checks
+        ms = cuda_ms(run, reps=20, graph=True)
         plain_ms = cuda_ms(plain, reps=3)
-        lib_ms = cuda_ms(library, reps=20)
+        lib_ms = cuda_ms(library, reps=20, graph=True)
         # bytes: each bf16 input read once and each output written once
         n = x.numel()
         nbytes = (4 if resid else 2) * 2 * n
@@ -797,11 +847,20 @@ def check_ln_kernels(dev, g, record, results) -> None:
         mode='plain with the residual (spatial norm2/norm3)',
         library='y + resid, then F.layer_norm: the same function in two '
         'calls')
+    dit = case((2, 9680, 3072), False, True, True)
+    results['fused_resid_ln']['dit'] = sub_record(
+        [2, 9680, 3072], dit[0], *dit[1:], mode='plain with the residual',
+        library='y + resid, then F.layer_norm: the same function in two '
+        'calls')
     for n, c in ((3600, 640), (920, 1280)):
         shape = [2, 8, n, c]
         lvl = case(shape, True, False, True)
         results['fused_ln'][f'c{c}'] = sub_record(shape, lvl[0], *lvl[1:],
                                                   mode='LIEM-gated')
+        lvl = case(shape, False, False, True)
+        results['fused_ln'][f'c{c}_plain'] = sub_record(
+            shape, lvl[0], *lvl[1:], mode='plain',
+            library='F.layer_norm: the same function')
         lvl = case(shape, True, True, True)
         results['fused_resid_ln'][f'c{c}'] = sub_record(
             shape, lvl[0], *lvl[1:], mode='LIEM-gated with the residual')

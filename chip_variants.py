@@ -1,0 +1,293 @@
+"""Time design variants of the port's hand-written kernels on one CUDA card.
+
+    python3 chip_variants.py            # K1 and K10/K11 variants
+    python3 chip_variants.py k1         # or only one family
+
+Each variant is a committed source (star_tpu_torch/csrc/) with a few lines
+replaced, every replacement checked to match: a deeper or shallower ring,
+another block size, or one stage of the kernel replaced by a stand-in to
+see what bounds it. Each is built by its own nvcc (all in parallel) into
+build/variants/, loaded with ctypes, and timed with CUDA events in turn
+with the unmodified source, twice (in one order, then the reverse), in one
+process: the numbers compare designs within one call. Variants marked
+`timing only` change what the kernel computes and are not checked; the
+others are held to the plain version with chip_smoke.py's tolerance.
+Prints one line per (variant, shape) and, last, one JSON object.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import chip_smoke as cs
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(ROOT, 'star_tpu_torch', 'csrc')
+OUT = os.path.join(ROOT, 'build', 'variants')
+
+K1_SRC = 'flash_fwd_sm90.cu'
+EX2 = '''  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));
+  return y;'''
+# 2^x for x <= 0 on the FMA pipe: n = round(x) by the 1.5 * 2^23 trick,
+# 2^f on [-0.5, 0.5] by a degree-3 fit with p(0) = 1 (relative error
+# 1.0e-4), n added into the exponent; x <= -127 gives exactly 0
+POLY = '''
+__device__ __forceinline__ float ex2_poly(float x) {
+  x = fmaxf(x, -127.f);
+  const float t = x + 12582912.f;
+  const float f = x - (t - 12582912.f);
+  float p = fmaf(0.05500893294811249f, f, 0.2422109693288803f);
+  p = fmaf(p, f, 0.6932829022407532f);
+  p = fmaf(p, f, 1.0f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+'''
+EXP_LOOP = '''      s[4 * i] = ex2(fmaf(s[4 * i], c, -n0));
+      s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], c, -n0));
+      s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], c, -n1));
+      s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], c, -n1));'''
+LOAD = '''        mbar_wait(&sm.k_empty[st], free_parity);
+        mbar_expect_tx(&sm.k_full[st], TILE);'''
+LOAD_ONCE = '''        if (j >= STAGES) {   // the stages keep their first tiles
+          mbar_wait(&sm.k_empty[st], free_parity);
+          mbar_arrive(&sm.k_full[st]);
+          mbar_wait(&sm.v_empty[st], free_parity);
+          mbar_arrive(&sm.v_full[st]);
+          continue;
+        }
+''' + LOAD
+
+
+def poly_every(n: int) -> list[tuple[str, str]]:
+    """exp2 by the polynomial on every n-th block of 4 logits."""
+    mixed = (f'      if (i % {n} == {n - 1}) {{\n'
+             + EXP_LOOP.replace('ex2(', 'ex2_poly(') + '\n      } else {\n'
+             + EXP_LOOP + '\n      }')
+    return [('typedef __nv_bfloat16 bf16;\n',
+             'typedef __nv_bfloat16 bf16;\n' + POLY), (EXP_LOOP, mixed)]
+
+
+NO_EXP2 = [(EX2, '  return fmaf(x, 0.001f, 1.f);')]
+STAGES = 'BK = 128, STAGES = 3;'
+# name -> (source, [(old, new)], checked)
+K1_VARIANTS = {
+    'stages2': (K1_SRC, [(STAGES, 'BK = 128, STAGES = 2;')], True),
+    'stages4': (K1_SRC, [(STAGES, 'BK = 128, STAGES = 4;')], True),
+    'three_groups': (K1_SRC, [('constexpr int NWG = 2;',
+                               'constexpr int NWG = 3;')], True),
+    'poly_exp2_1of8': (K1_SRC, poly_every(8), True),
+    'poly_exp2_1of4': (K1_SRC, poly_every(4), True),
+    'poly_exp2_1of2': (K1_SRC, poly_every(2), True),
+    'no_exp2 (timing only)': (K1_SRC, NO_EXP2, False),
+    'loads_once (timing only)': (K1_SRC, [(LOAD, LOAD_ONCE)], False),
+    'no_exp2_loads_once (timing only)': (
+        K1_SRC, NO_EXP2 + [(LOAD, LOAD_ONCE)], False),
+}
+LN_SRC = 'fused_ln.cu'
+
+
+def ln_threads(n: int) -> list[tuple[str, str]]:
+    return [('__launch_bounds__(128)', f'__launch_bounds__({n})'),
+            ('constexpr int kThreads = 128;', f'constexpr int kThreads = {n};')]
+
+
+LN_VARIANTS = {
+    'threads256': (LN_SRC, ln_threads(256), True),
+    'threads512': (LN_SRC, ln_threads(512), True),
+}
+
+
+def variant_source(src: str, subs) -> str:
+    with open(os.path.join(CSRC, src)) as fh:
+        text = fh.read()
+    for old, new in subs:
+        if old not in text:
+            raise RuntimeError(f'{src}: variant text not found: {old[:60]!r}')
+        text = text.replace(old, new)
+    return text
+
+
+def build(variants: dict) -> dict:
+    """name -> loaded library; the unmodified source as 'base'."""
+    from star_tpu_torch.ops import _build
+    os.makedirs(OUT, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    src0 = next(iter(variants.values()))[0]
+    jobs = {'base': (src0, [])}
+    jobs.update({k: (v[0], v[1]) for k, v in variants.items()})
+    procs = {}
+    for i, (name, (src, subs)) in enumerate(jobs.items()):
+        cu = os.path.join(OUT, f'v{i}_{src}')
+        with open(cu, 'w') as fh:     # beside the originals' headers
+            fh.write(variant_source(src, subs))
+        so = cu[:-3] + '.so'
+        procs[name] = (so, subprocess.Popen(
+            [nvcc, *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, '-Xptxas=-v',
+             '-I', CSRC, '-shared', cu, '-o', so],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f'{name}: nvcc failed\n{out[-3000:]}')
+        regs = [ln.split(': ')[-1].strip() for ln in out.splitlines()
+                if 'Used' in ln or 'spill stores' in ln]
+        cs.log(f'{name}: {"; ".join(sorted(set(regs)))[:160]}')
+        lib = ctypes.CDLL(so)
+        for fn, sig in _build._SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = sig
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def in_turn(libs: dict, run, reps: int) -> dict:
+    """name -> [ms, ms]: every library timed once in order, then again in
+    the reverse order."""
+    res = {n: [] for n in libs}
+    for order in (list(libs), list(reversed(list(libs)))):
+        for n in order:
+            res[n].append(cs.cuda_ms(lambda: run(libs[n]), reps=reps,
+                                     warmup=2))
+    return res
+
+
+def k1(dev, g) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import _build, flash_attention as fa
+    libs = build(K1_VARIANTS)
+    checked = {'base'} | {k for k, v in K1_VARIANTS.items() if v[2]}
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+
+    def call(lib, q, k, v, h, c, kv, lse):
+        b, sq, row = q.shape
+        sk = k.shape[1]
+        o = torch.empty_like(q)
+        ls = torch.empty(b, h, sq, device=dev) if lse else None
+        err = lib.star_flash_fwd_d64(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if ls is None else ls.data_ptr(), b, h, sq, sk, kv,
+            sq * row, sk * row, sk * row, sq * row, row, row, row, row,
+            float(c), _build.stream_ptr(dev))
+        _build.check(err, 'star_flash_fwd_d64')
+        return o, ls
+
+    q, k, v = (randn(2, 1000, 320) for _ in range(3))
+    ref, lref = fa.flash_attention_packed_plain(q, k, v, 5, 0.125, 777,
+                                                return_lse=True)
+    for name in sorted(checked):
+        o, ls = call(libs[name], q, k, v, 5, 0.125 * fa.LOG2E, 777, True)
+        cs.agrees(f'{name} [2,1000,320] kv_valid=777', [(o, ref)])
+        assert float((ls - lref).abs().max()) <= 1e-3, name
+    rows = []
+    for (bsz, s, c, kv, pre, lse) in ((16, 14400, 320, 14400, False, False),
+                                      (2, 9680, 3072, 9676, True, False),
+                                      (8, 14400, 320, 14400, False, True)):
+        h = c // 64
+        q, k, v = (randn(bsz, s, c) for _ in range(3))
+        cc = 1.0 if pre else 0.125 * fa.LOG2E
+        res = in_turn(libs, lambda lib: call(lib, q, k, v, h, cc, kv, lse),
+                      reps=10)
+        to4 = lambda t: t[:, :kv].view(bsz, kv, h, 64).transpose(1, 2)
+        q4 = q.view(bsz, s, h, 64).transpose(1, 2)
+        sdpa = [cs.cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, to4(k), to4(v), scale=fa.LN2 if pre else None), reps=10,
+            warmup=2) for _ in range(2)]
+        flops = 4.0 * bsz * h * s * kv * 64
+        for name, ms in list(res.items()) + [('SDPA', sdpa)]:
+            rows.append(dict(kernel='K1', variant=name,
+                             shape=[bsz, s, c], kv_valid=kv, lse=lse,
+                             ms=ms, tflops=flops / min(ms) / 1e9))
+            cs.log(f'K1 {name:34s} [{bsz},{s},{c}] lse={lse}: '
+                   + ' '.join(f'{m:.3f}' for m in ms)
+                   + f' ms, {rows[-1]["tflops"]:.0f} TFLOP/s')
+        del q, k, v
+    return rows
+
+
+def ln(dev, g) -> list[dict]:
+    import torch
+    from star_tpu_torch.ops import _build, fused_ln as fl
+    libs = build(LN_VARIANTS)
+    st = _build.stream_ptr(dev)
+
+    def call(lib, x, r, sc, bi, gw):
+        c = x.shape[-1]
+        rows = x.numel() // c
+        out = torch.empty_like(x)
+        gp = None if gw is None else gw.data_ptr()
+        if r is None:
+            err = lib.star_fused_ln(x.data_ptr(), sc.data_ptr(),
+                                    bi.data_ptr(), gp, 1, out.data_ptr(),
+                                    rows, c, 1e-5, st)
+            _build.check(err, 'star_fused_ln')
+            return out
+        xr = torch.empty_like(x)
+        err = lib.star_fused_resid_ln(x.data_ptr(), r.data_ptr(),
+                                      sc.data_ptr(), bi.data_ptr(), gp, 1,
+                                      out.data_ptr(), xr.data_ptr(), rows,
+                                      c, 1e-5, st)
+        _build.check(err, 'star_fused_resid_ln')
+        return out
+
+    rows = []
+    for shape, gated, resid in (((2, 8, 14400, 320), True, False),
+                                ((2, 8, 14400, 320), True, True),
+                                ((16, 14400, 320), False, True),
+                                ((2, 8, 3600, 640), True, False),
+                                ((2, 8, 3600, 640), True, True),
+                                ((2, 8, 920, 1280), True, False),
+                                ((2, 8, 920, 1280), True, True),
+                                ((2, 9680, 3072), False, False)):
+        x, r, sc, bi, gw = cs.ln_inputs(shape, gated, resid, dev, g)
+        ref = (fl.fused_resid_ln_plain(x, sc, bi, r, gw)[0] if resid
+               else fl.fused_ln_plain(x, sc, bi, 1e-5, gw))
+        for name, lib in libs.items():
+            cs.agrees(f'{name} {list(shape)}', [(call(lib, x, r, sc, bi,
+                                                     gw), ref)])
+        res = in_turn(libs, lambda lib: call(lib, x, r, sc, bi, gw),
+                      reps=50)
+        n = x.numel()
+        bound = (4 if resid else 2) * 2 * n / cs.PEAK_BYTES * 1e3
+        for name, ms in res.items():
+            rows.append(dict(kernel='K11' if resid else 'K10',
+                             variant=name, shape=list(shape), gated=gated,
+                             ms=ms, bound_ms=bound))
+            cs.log(f'{"K11" if resid else "K10"} {name:10s} {list(shape)} '
+                   f'gated={gated}: ' + ' '.join(f'{m:.4f}' for m in ms)
+                   + f' ms, bound {bound:.4f} ms')
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_variants: no CUDA device', file=sys.stderr)
+        return 2
+    which = sys.argv[1:] or ['k1', 'ln']
+    card = cs.card_line()
+    cs.log(f'card: {card}')
+    dev = torch.device('cuda', 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    if 'k1' in which:
+        rows += k1(dev, g)
+    if 'ln' in which:
+        rows += ln(dev, g)
+    clocks = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+         '--format=csv,noheader'], capture_output=True, text=True).stdout
+    print(json.dumps(dict(card=card, clocks_power_after=clocks.strip(),
+                          rows=rows)))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

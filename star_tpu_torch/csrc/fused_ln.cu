@@ -22,20 +22,32 @@
 // 2 (K10) or 4 (K11) bytes read and 2 or 4 written, far below the card's
 // 295 FLOP/byte balance: the floor is one read of each input and one write
 // of each output.
-// Design: one warp per row, the whole row in registers as bf16x2 (C/64
-// pairs a lane; lane j holds pairs j, j + 32, ..., so each step of the warp
-// reads 128 contiguous bytes). Sum, sum of squares and, when gated, the
-// max are lane partials reduced with xor shuffles, so every lane ends with
-// the row's statistics and applies them to the values it already holds:
-// one read and one write of every tensor, nothing in shared memory. The
-// register array is sized by a bucket of C (8, 16, 32 or 64 pairs) and the
-// pairs past C/64 are skipped. Scale, bias and the gate weights are read as
-// bf16 or fp32, whichever the module holds, so no cast runs beside the
-// kernel.
+// Design: one warp per row, the whole row in registers. Sum, sum of squares
+// and, when gated, the max are lane partials reduced with xor shuffles, so
+// every lane ends with the row's statistics and applies them to the values
+// it already holds: one read and one write of every tensor, nothing in
+// shared memory. Two paths by width, the same function:
+// - C < 1024 (the UNet's 320 and 640): the row as bf16x2, C/64 pairs a
+//   lane (lane j holds pairs j, j + 32, ..., so each step of the warp reads
+//   128 contiguous bytes), in a register array sized by a bucket of C (8 or
+//   16 pairs), the pairs past C/64 skipped.
+// - C >= 1024 (CLIP's 1024, the UNet's 1280, the DiT's 3072): 16-byte
+//   vectors of 8 bf16, C/256 a lane (each step of the warp reads 512
+//   contiguous bytes), so a lane issues a quarter of the loads and stores
+//   and holds no unused registers: the array is sized to the exact C for
+//   1024, 1280 and 3072, and one generic instantiation of the same kernel
+//   takes the other multiples of 64 up to 4096 with the vectors past C/8
+//   skipped. The whole row is loaded before any arithmetic, so a warp has
+//   all of its row's bytes in flight at once.
+// Scale, bias and the gate weights are read as bf16 or fp32, whichever the
+// module holds, so no cast runs beside the kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <initializer_list>
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
@@ -118,8 +130,126 @@ __device__ __forceinline__ void ln_row(
   }
 }
 
+// ---------------------------------------------------------------------------
+// C >= 1024: 16-byte vectors
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const bf162* h = reinterpret_cast<const bf162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __bfloat1622float2(h[k]);
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 u;
+  bf162* h = reinterpret_cast<bf162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+  return u;
+}
+
+// parameters i*8 .. i*8+7, bf16 or fp32
+__device__ __forceinline__ void load_param8(const void* p, int i, bool pbf,
+                                            float (&f)[8]) {
+  if (pbf) {
+    unpack8(reinterpret_cast<const uint4*>(p)[i], f);
+  } else {
+    const float4 a = reinterpret_cast<const float4*>(p)[2 * i];
+    const float4 b = reinterpret_cast<const float4*>(p)[2 * i + 1];
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+}
+
+// One row per warp, NV vectors a lane (lane j holds vectors j, j + 32,
+// ...); EXACT: C == 256 * NV, else the vectors past C/8 are skipped.
+template <int NV, bool EXACT, bool GATED, bool RESID>
+__device__ __forceinline__ void ln_row_wide(
+    const bf16* __restrict__ x, const bf16* __restrict__ resid,
+    const void* __restrict__ scale, const void* __restrict__ bias,
+    const void* __restrict__ gate_w, bool pbf, bf16* __restrict__ out,
+    bf16* __restrict__ xr, long long rows, int C, float eps) {
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const int nv = C >> 3;
+  const long long base = row * C;
+  const uint4* xp = reinterpret_cast<const uint4*>(x + base);
+
+  uint4 v[NV];
+  uint4 r[RESID ? NV : 1];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int idx = lane + 32 * i;
+    if (EXACT || idx < nv) {
+      v[i] = xp[idx];
+      if (RESID) r[i] = reinterpret_cast<const uint4*>(resid + base)[idx];
+    }
+  }
+  float s = 0.f, s2 = 0.f, mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int idx = lane + 32 * i;
+    if (EXACT || idx < nv) {
+      float f[8];
+      unpack8(v[i], f);
+      if (RESID) {
+        float fr[8];
+        unpack8(r[i], fr);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) f[k] += fr[k];
+        v[i] = pack8(f);           // xr, rounded once
+        unpack8(v[i], f);
+        reinterpret_cast<uint4*>(xr + base)[idx] = v[i];
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        s += f[k];
+        s2 += f[k] * f[k];
+        if (GATED) mx = fmaxf(mx, f[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    if (GATED) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  const float mean = s / (float)C;
+  const float var = fmaxf(s2 / (float)C - mean * mean, 0.f);
+  float a;
+  if (GATED) {
+    const float w0 = load_param(gate_w, 0, pbf);
+    const float w1 = load_param(gate_w, 1, pbf);
+    const float g = 1.f / (1.f + expf(-(w0 * mx + w1 * mean)));
+    a = g * rsqrtf(var * (g * g) + eps);
+  } else {
+    a = rsqrtf(var + eps);
+  }
+  uint4* op = reinterpret_cast<uint4*>(out + base);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int idx = lane + 32 * i;
+    if (EXACT || idx < nv) {
+      float f[8], sc[8], bi[8];
+      unpack8(v[i], f);
+      load_param8(scale, idx, pbf, sc);
+      load_param8(bias, idx, pbf, bi);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) f[k] = (f[k] - mean) * a * sc[k] + bi[k];
+      op[idx] = pack8(f);
+    }
+  }
+}
+
 template <int MAXP, bool GATED>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(128)
 star_ln_kernel(const bf16* __restrict__ x, const void* __restrict__ scale,
                const void* __restrict__ bias,
                const void* __restrict__ gate_w, int pbf,
@@ -129,7 +259,7 @@ star_ln_kernel(const bf16* __restrict__ x, const void* __restrict__ scale,
 }
 
 template <int MAXP, bool GATED>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(128)
 star_resid_ln_kernel(const bf16* __restrict__ y,
                      const bf16* __restrict__ resid,
                      const void* __restrict__ scale,
@@ -141,9 +271,35 @@ star_resid_ln_kernel(const bf16* __restrict__ y,
                             xr, rows, C, eps);
 }
 
+template <int NV, bool EXACT, bool GATED>
+__global__ void __launch_bounds__(128)
+star_ln_kernel_wide(const bf16* __restrict__ x,
+                    const void* __restrict__ scale,
+                    const void* __restrict__ bias,
+                    const void* __restrict__ gate_w, int pbf,
+                    bf16* __restrict__ out, long long rows, int C,
+                    float eps) {
+  ln_row_wide<NV, EXACT, GATED, false>(x, nullptr, scale, bias, gate_w,
+                                       pbf != 0, out, nullptr, rows, C, eps);
+}
+
+template <int NV, bool EXACT, bool GATED>
+__global__ void __launch_bounds__(128)
+star_resid_ln_kernel_wide(const bf16* __restrict__ y,
+                          const bf16* __restrict__ resid,
+                          const void* __restrict__ scale,
+                          const void* __restrict__ bias,
+                          const void* __restrict__ gate_w, int pbf,
+                          bf16* __restrict__ out, bf16* __restrict__ xr,
+                          long long rows, int C, float eps) {
+  ln_row_wide<NV, EXACT, GATED, true>(y, resid, scale, bias, gate_w,
+                                      pbf != 0, out, xr, rows, C, eps);
+}
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 rows a block
+constexpr int kThreads = 128;  // 4 rows a block
+constexpr int kWide = 1024;    // rows of C >= kWide take the 16-byte path
 
 bool bad_shape(long long rows, int C) {
   return rows <= 0 || C < 64 || C > 4096 || C % 64 != 0;
@@ -181,6 +337,44 @@ void launch_resid_ln(const void* y, const void* resid, const void* scale,
         (bf16*)out, (bf16*)xr, rows, C, eps);
 }
 
+template <int NV, bool EXACT>
+void launch_ln_wide(const void* x, const void* scale, const void* bias,
+                    const void* gate_w, int pbf, void* out, long long rows,
+                    int C, float eps, cudaStream_t st) {
+  if (gate_w)
+    star_ln_kernel_wide<NV, EXACT, true><<<blocks_for(rows), kThreads, 0,
+                                           st>>>(
+        (const bf16*)x, scale, bias, gate_w, pbf, (bf16*)out, rows, C, eps);
+  else
+    star_ln_kernel_wide<NV, EXACT, false><<<blocks_for(rows), kThreads, 0,
+                                            st>>>(
+        (const bf16*)x, scale, bias, gate_w, pbf, (bf16*)out, rows, C, eps);
+}
+
+template <int NV, bool EXACT>
+void launch_resid_ln_wide(const void* y, const void* resid,
+                          const void* scale, const void* bias,
+                          const void* gate_w, int pbf, void* out, void* xr,
+                          long long rows, int C, float eps, cudaStream_t st) {
+  if (gate_w)
+    star_resid_ln_kernel_wide<NV, EXACT, true><<<blocks_for(rows), kThreads,
+                                                 0, st>>>(
+        (const bf16*)y, (const bf16*)resid, scale, bias, gate_w, pbf,
+        (bf16*)out, (bf16*)xr, rows, C, eps);
+  else
+    star_resid_ln_kernel_wide<NV, EXACT, false><<<blocks_for(rows),
+                                                  kThreads, 0, st>>>(
+        (const bf16*)y, (const bf16*)resid, scale, bias, gate_w, pbf,
+        (bf16*)out, (bf16*)xr, rows, C, eps);
+}
+
+// the 16-byte path reads every tensor in 16-byte vectors
+bool misaligned(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16) return true;
+  return false;
+}
+
 }  // namespace
 
 // K10. x, out [rows, C] bf16; scale, bias [C] and gate_w [2] (null: no
@@ -191,14 +385,24 @@ extern "C" int star_fused_ln(const void* x, const void* scale,
                              void* stream) {
   if (bad_shape(rows, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (C >= kWide && misaligned({x, scale, bias, out}))
+    return (int)cudaErrorInvalidValue;
   if (C <= 512)
     launch_ln<8>(x, scale, bias, gate_w, pbf, out, rows, C, eps, st);
-  else if (C <= 1024)
+  else if (C < kWide)
     launch_ln<16>(x, scale, bias, gate_w, pbf, out, rows, C, eps, st);
-  else if (C <= 2048)
-    launch_ln<32>(x, scale, bias, gate_w, pbf, out, rows, C, eps, st);
+  else if (C == 1024)
+    launch_ln_wide<4, true>(x, scale, bias, gate_w, pbf, out, rows, C, eps,
+                            st);
+  else if (C == 1280)
+    launch_ln_wide<5, true>(x, scale, bias, gate_w, pbf, out, rows, C, eps,
+                            st);
+  else if (C == 3072)
+    launch_ln_wide<12, true>(x, scale, bias, gate_w, pbf, out, rows, C, eps,
+                             st);
   else
-    launch_ln<64>(x, scale, bias, gate_w, pbf, out, rows, C, eps, st);
+    launch_ln_wide<16, false>(x, scale, bias, gate_w, pbf, out, rows, C,
+                              eps, st);
   return (int)cudaGetLastError();
 }
 
@@ -210,17 +414,25 @@ extern "C" int star_fused_resid_ln(const void* y, const void* resid,
                                    float eps, void* stream) {
   if (bad_shape(rows, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (C >= kWide && misaligned({y, resid, scale, bias, out, xr}))
+    return (int)cudaErrorInvalidValue;
   if (C <= 512)
     launch_resid_ln<8>(y, resid, scale, bias, gate_w, pbf, out, xr, rows, C,
                        eps, st);
-  else if (C <= 1024)
+  else if (C < kWide)
     launch_resid_ln<16>(y, resid, scale, bias, gate_w, pbf, out, xr, rows,
                         C, eps, st);
-  else if (C <= 2048)
-    launch_resid_ln<32>(y, resid, scale, bias, gate_w, pbf, out, xr, rows,
-                        C, eps, st);
+  else if (C == 1024)
+    launch_resid_ln_wide<4, true>(y, resid, scale, bias, gate_w, pbf, out,
+                                  xr, rows, C, eps, st);
+  else if (C == 1280)
+    launch_resid_ln_wide<5, true>(y, resid, scale, bias, gate_w, pbf, out,
+                                  xr, rows, C, eps, st);
+  else if (C == 3072)
+    launch_resid_ln_wide<12, true>(y, resid, scale, bias, gate_w, pbf, out,
+                                   xr, rows, C, eps, st);
   else
-    launch_resid_ln<64>(y, resid, scale, bias, gate_w, pbf, out, xr, rows,
-                        C, eps, st);
+    launch_resid_ln_wide<16, false>(y, resid, scale, bias, gate_w, pbf, out,
+                                    xr, rows, C, eps, st);
   return (int)cudaGetLastError();
 }

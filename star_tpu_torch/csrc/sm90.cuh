@@ -1,0 +1,261 @@
+// Hopper (sm_90a) primitives for the port's warp-specialised kernels, in
+// raw PTX, as mma_sm80.cuh is for mma.sync: mbarriers, TMA tensor copies
+// (3-D, 128-byte swizzle) and their tensor maps, wgmma descriptors, fences
+// and the two products K1 needs, named barriers and setmaxnreg.
+//
+// The tensor map is encoded on the host with cuTensorMapEncodeTiled, found
+// through the CUDA runtime's entry-point query, so the library links no
+// libcuda.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA traffic in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// waits until the phase of parity `parity` has completed. A wait that
+// outlasts 2^26 tries (far above any real one: each try may suspend the
+// thread for a while) traps, so a fault ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done, tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (++tries == (1u << 26)) __trap();
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+
+// box of a 3-D tensor map at (c0, c1, c2) -> shared memory; completes
+// `bytes` on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// shared memory -> the box at (c0, c1, c2); elements outside the tensor
+// are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the issuing thread's stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// orders this thread's plain shared-memory writes before later async-proxy
+// reads (a TMA store)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// named barriers and register reallocation
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+
+// Shared-memory matrix descriptor for the 128-byte swizzle: 1024-byte
+// atoms of 8 rows x 128 bytes, `sbo` bytes between consecutive 8-row
+// atoms, `lbo` bytes between atoms along the leading dimension (read only
+// for MN-major operands wider than one atom). Advancing the start address
+// by 32 bytes steps 16 bf16 along a K-major row.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins the order of register accesses around asynchronous products: the
+// compiler may not move uses of `r` across this point
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_reg(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+#define SM90_F8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64x128] (+)= A[64x16] B[16x128]: A and B bf16 in shared memory, both
+// K-major; fp32 accumulate. scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32),
+        SM90_F8(40), SM90_F8(48), SM90_F8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64x64] (+)= A[64x16] B[16x64]: A bf16 from registers (the m16n8k16
+// A-fragment layout, one 16-row slice per warp), B bf16 in shared memory
+// MN-major (rows of K, N contiguous: the transpose bit); fp32 accumulate.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
+                                                      const uint32_t* a,
+                                                      uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#undef SM90_F8
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess && p)
+      fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A bf16 tensor of dims {d0, d1, d2} (d0 contiguous; s1, s2 the byte
+// strides of d1 and d2) read in boxes of {64, box1, 1}: 128-byte rows under
+// the 128-byte swizzle, elements outside the tensor read as zero. Returns
+// false where cuTensorMapEncodeTiled refuses it.
+inline bool encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
+                           uint64_t d1, uint64_t d2, uint64_t s1, uint64_t s2,
+                           uint32_t box1) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {64, box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace sm90

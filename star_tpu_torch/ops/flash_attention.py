@@ -14,6 +14,10 @@
      fixed-reference denominators l instead; the gradient is the same
      function.
 
+The d=64 forward (K1 and K2 `with_l`) is csrc/flash_fwd_sm90.cu (wgmma fed
+by TMA, warp-specialised); its launch arithmetic is `k1_launch_plan`. The
+d=512 forward is csrc/flash_fwd.cu.
+
 Every kernel runs for a CUDA tensor (or raises if it does not take the
 input), and its plain PyTorch version for a CPU tensor. The plain forward
 is the JAX package's `_xla_reference`: fp32 logits, fp32 softmax,
@@ -93,11 +97,57 @@ def flash_bwd_plain(q, k, v, o, lse, do, num_heads: int, scale: float):
     return flat(dq), flat(dk), flat(dv)
 
 
+# K1's tiles (csrc/flash_fwd_sm90.cu): 128 query rows a block in two
+# consumer warpgroups of 64, 128 keys a tile, a 64-column head = one
+# 128-byte swizzled row
+K1_BQ, K1_BK, K1_D = 128, 128, 64
+K1_THREADS = 384      # a producer warpgroup and two consumer warpgroups
+
+
+def k1_launch_plan(bsz: int, heads: int, sq: int, sk: int, kv_valid: int,
+                   head_dim: int = 64, row_stride: int | None = None) -> dict:
+    """What the d=64 forward launches for bf16 q [bsz, sq, row], k/v
+    [bsz, sk, row] with head h at column h*64 of rows `row_stride`
+    elements apart (heads*64 when packed, as `_launch` passes them; the
+    entry point takes any stride): the 3-D TMA tensor maps
+    (dims and boxes innermost first, strides in bytes of dims 1 and 2),
+    the grid, and the live key tiles. kv_valid is clipped to sk, as the
+    entry point clips it; the K/V maps end there, so no tile past it is
+    loaded. Raises ValueError on what the kernel does not take."""
+    row = heads * head_dim if row_stride is None else row_stride
+    kv = min(kv_valid, sk)
+    if head_dim != K1_D:
+        raise ValueError(f'the d=64 flash kernel takes head_dim 64, not '
+                         f'{head_dim}')
+    if min(bsz, heads, sq) < 1 or kv < 1:
+        raise ValueError(f'flash kernel: empty launch (B {bsz}, H {heads}, '
+                         f'Sq {sq}, live keys {kv})')
+    if row < heads * head_dim:
+        raise ValueError(f'flash kernel: row stride {row} < {heads} heads '
+                         f'x {head_dim}')
+    pitch = row * 2
+    if pitch % 16:
+        raise ValueError(f'flash kernel: TMA needs a row pitch that is a '
+                         f'multiple of 16 bytes, got {pitch}')
+    if bsz * heads > 65535:
+        raise ValueError(f'flash kernel: B*H = {bsz * heads} > 65535')
+    width = heads * head_dim
+
+    def tmap(rows, box_rows, seq):
+        return dict(dims=(width, rows, bsz), strides=(pitch, seq * pitch),
+                    box=(K1_D, box_rows, 1))
+    return dict(q=tmap(sq, K1_BQ, sq), k=tmap(kv, K1_BK, sk),
+                v=tmap(kv, K1_BK, sk), o=tmap(sq, K1_BQ // 2, sq),
+                grid=(-(-sq // K1_BQ), bsz * heads), threads=K1_THREADS,
+                kv_valid=kv, live_tiles=-(-kv // K1_BK))
+
+
 def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
             want_lse: bool = False):
-    """Launch csrc/flash_fwd.cu on q/k/v whose rows are [S, heads*d] with
-    head h at column h*d; returns the output in q's layout (and with
-    `want_lse`, d=64 only, the fp32 log-sum-exp [B, heads, Sq])."""
+    """Launch the d=64 forward (csrc/flash_fwd_sm90.cu) or the d=512 one
+    (csrc/flash_fwd.cu) on q/k/v whose rows are [S, heads*d] with head h
+    at column h*d; returns the output in q's layout (and with `want_lse`,
+    d=64 only, the fp32 log-sum-exp [B, heads, Sq])."""
     global PACKED_LAUNCHES, LSE_LAUNCHES, D512_LAUNCHES
     name = {64: 'star_flash_fwd_d64', 512: 'star_flash_fwd_d512'}.get(d)
     if name is None or (want_lse and d != 64):
@@ -118,6 +168,8 @@ def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
     bsz, sq = q.shape[0], q.shape[1]
     sk = k.shape[1]
     row = heads * d
+    if d == 64:
+        kv_valid = k1_launch_plan(bsz, heads, sq, sk, kv_valid)['kv_valid']
     out = torch.empty_like(q)
     strides = (bsz, heads, sq, sk, max(0, min(kv_valid, sk)),
                sq * row, sk * row, sk * row, sq * row, row, row, row, row,

@@ -11,13 +11,13 @@ x.dtype. K11 first forms xr = y + resid in y.dtype (one rounding, PyTorch's
 own add), normalises xr and returns (normed, xr).
 
 A CUDA tensor goes through csrc/fused_ln.cu (bf16, contiguous, C a
-multiple of 64 up to 4096; anything else raises); a CPU tensor through the
-plain version. Under autograd both are torch.autograd.Functions whose
-backward recomputes the plain version from the saved inputs and
-differentiates it, on CUDA tensors too, as the JAX package's custom VJPs
-recompute through their references (fused_ln.py:168-199,
-stream_fuse.py:210-218); there is no backward kernel. Gradients reach x,
-resid, scale, bias and the gate weights.
+multiple of 64 up to 4096; anything else raises), whose path by width is
+`ln_launch_plan`; a CPU tensor through the plain version. Under autograd
+both are torch.autograd.Functions whose backward recomputes the plain
+version from the saved inputs and differentiates it, on CUDA tensors too,
+as the JAX package's custom VJPs recompute through their references
+(fused_ln.py:168-199, stream_fuse.py:210-218); there is no backward
+kernel. Gradients reach x, resid, scale, bias and the gate weights.
 """
 
 from __future__ import annotations
@@ -28,6 +28,34 @@ from . import _build
 
 LN_LAUNCHES = 0          # K10
 RESID_LN_LAUNCHES = 0    # K11
+
+# csrc/fused_ln.cu: one warp a row, 4 rows a block; rows of C >= LN_WIDE
+# take the 16-byte path, its register array sized to the exact C for the
+# widths in LN_EXACT (vectors of 8 a lane) and generic (16) for the others
+LN_THREADS = 128
+LN_WIDE = 1024
+LN_EXACT = {1024: 4, 1280: 5, 3072: 12}
+
+
+def ln_launch_plan(rows: int, c: int) -> dict:
+    """What csrc/fused_ln.cu launches for `rows` rows of C values: the path
+    ('pairs': bf16x2 steps, C/64 a lane in a bucket of 8 or 16; 'vec16':
+    16-byte vectors of 8 bf16, C/256 a lane), the registers of row data a
+    lane holds (`per_lane`, in pairs or vectors), whether that array is
+    sized to the exact C, the alignment in bytes every tensor needs, and
+    the grid. Raises ValueError on a width the kernels do not take."""
+    if c % 64 or not 64 <= c <= 4096:
+        raise ValueError(f'fused LayerNorm kernels take C a multiple of 64 '
+                         f'up to 4096, got {c}')
+    if c < LN_WIDE:
+        plan = dict(path='pairs', per_lane=8 if c <= 512 else 16,
+                    exact=False, align=4)
+    else:
+        plan = dict(path='vec16', per_lane=LN_EXACT.get(c, 16),
+                    exact=c in LN_EXACT, align=16)
+    rows_per_block = LN_THREADS // 32
+    return dict(plan, threads=LN_THREADS,
+                blocks=-(-rows // rows_per_block))
 
 
 def _norm_plain(x, scale, bias, eps, gate_w):
@@ -70,14 +98,14 @@ def _kernel_args(name, x, scale, bias, gate_w, others=()):
     c = x.shape[-1]
     for t in (x, *others):
         if not t.is_cuda or t.dtype != torch.bfloat16 \
-                or not t.is_contiguous() or t.data_ptr() % 4 \
-                or t.shape != x.shape:
+                or not t.is_contiguous() or t.shape != x.shape:
             raise ValueError(f'{name} kernel takes contiguous bf16 CUDA '
                              f'tensors of one shape, got {t.dtype} '
                              f'{tuple(t.shape)} on {t.device}')
-    if c % 64 or not 64 <= c <= 4096:
-        raise ValueError(f'{name} kernel takes C a multiple of 64 up to '
-                         f'4096, got {c}')
+    align = ln_launch_plan(x.numel() // c, c)['align']
+    if any(t.data_ptr() % align for t in (x, *others)):
+        raise ValueError(f'{name} kernel at C={c} takes {align}-byte '
+                         'aligned tensors')
     if tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,) \
             or (gate_w is not None and gate_w.numel() != 2):
         raise ValueError(f'{name} kernel takes [C] scale and bias and [2] '
@@ -88,6 +116,9 @@ def _kernel_args(name, x, scale, bias, gate_w, others=()):
     sc, bi, gw = (None if t is None else
                   t.to(device=x.device, dtype=dt).reshape(-1).contiguous()
                   for t in (scale, bias, gate_w))
+    if sc.data_ptr() % align or bi.data_ptr() % align:
+        raise ValueError(f'{name} kernel at C={c} takes {align}-byte '
+                         'aligned scale and bias')
     return x.numel() // c, c, sc, bi, gw, int(pbf)
 
 

@@ -9,13 +9,16 @@ import torch.nn.functional as F
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """x [..., H, W, C] -> [..., out_h, out_w, C]; bilinear with half-pixel
-    centres (align_corners=False), no antialias — what jax.image.resize
-    computes for the pipeline's x4 upsample."""
+    centres (align_corners=False), antialiased on an axis that shrinks
+    (the triangle widened by the ratio) — what jax.image.resize computes,
+    for the pipeline's x4 upsample and for a target smaller than the
+    input. Computed in float64: PyTorch's antialiased path rounds its
+    weights to about 1e-5 in float32 on an axis that grows."""
     lead = x.shape[:-3]
     h, w, c = x.shape[-3:]
     x4 = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
-    y = F.interpolate(x4.float(), size=(out_h, out_w), mode='bilinear',
-                      align_corners=False, antialias=False)
+    y = F.interpolate(x4.double(), size=(out_h, out_w), mode='bilinear',
+                      align_corners=False, antialias=True)
     return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, c).to(x.dtype)
 
 

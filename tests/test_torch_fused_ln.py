@@ -238,3 +238,56 @@ def test_faults_miss_the_card_tolerance(fault):
     chip_smoke.agrees('bf16 plain vs fp32 plain', [(ref, ref32)])
     with pytest.raises(AssertionError):
         chip_smoke.agrees(fault, [(bad, ref)])
+
+
+@pytest.mark.parametrize('c,path,per_lane,exact', [
+    (320, 'pairs', 8, False), (512, 'pairs', 8, False),
+    (640, 'pairs', 16, False), (960, 'pairs', 16, False),
+    (1024, 'vec16', 4, True), (1280, 'vec16', 5, True),
+    (3072, 'vec16', 12, True), (1088, 'vec16', 16, False),
+    (2048, 'vec16', 16, False), (4096, 'vec16', 16, False)])
+def test_launch_plan_path_by_width(c, path, per_lane, exact):
+    """csrc/fused_ln.cu's choice by C: bf16x2 pairs in a bucket of 8 or 16
+    below 1024; 16-byte vectors from 1024, the array sized to the exact C
+    at 1024, 1280 and 3072 (C/256 vectors a lane) and generic (16, the
+    vectors past C/8 skipped) at the other multiples of 64 up to 4096.
+    One warp a row, 4 rows a block."""
+    plan = fl.ln_launch_plan(19360, c)
+    assert (plan['path'], plan['per_lane'], plan['exact']) == (
+        path, per_lane, exact)
+    assert plan['align'] == (16 if path == 'vec16' else 4)
+    assert plan['threads'] == 128 and plan['blocks'] == 19360 // 4
+    if exact:
+        assert plan['per_lane'] * 256 == c
+    elif path == 'vec16':
+        assert plan['per_lane'] * 256 >= c
+    else:
+        assert plan['per_lane'] * 64 >= c
+
+
+@pytest.mark.parametrize('c', [96, 4160, 0, 32])
+def test_launch_plan_refuses_widths(c):
+    with pytest.raises(ValueError):
+        fl.ln_launch_plan(8, c)
+
+
+class _FakeCuda(torch.Tensor):
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize('c,offset', [(1280, 4), (3072, 12), (1024, 2)])
+def test_wide_path_refuses_misaligned_rows(c, offset):
+    """The 16-byte path needs 16-byte aligned tensors: a view `offset`
+    elements (8, 24 or 4 bytes) into its storage raises before any
+    build."""
+    base = torch.zeros(2 * c + offset, dtype=torch.bfloat16)
+    x = torch.Tensor._make_subclass(_FakeCuda, base[offset:].view(2, c))
+    sc = torch.ones(c, dtype=torch.bfloat16)
+    bi = torch.zeros(c, dtype=torch.bfloat16)
+    assert x.data_ptr() % 16
+    with pytest.raises(ValueError, match='aligned'):
+        fl._launch_ln(x, sc, bi, 1e-5, None)
+    with pytest.raises(ValueError, match='aligned'):
+        fl._launch_resid_ln(x, x, sc, bi, 1e-5, None)

@@ -28,8 +28,9 @@
    masters of the ControlNet+LIEM set, remat, the frequency loss on, a
    batch built as the training CLI builds it (VAE-encoded synthetic 720p
    pixels, hash-tokenised text) of 8 frames on the 90x160 latent grid; one
-   warm-up step and three timed steps through make_train_step, with the
-   launch counts reset before and read after each step;
+   warm-up step and six timed steps through make_train_step, all with the
+   same injected t and noise, the launch counts reset before and read
+   after each step;
 6. frees the I2VGen models, builds the CogVideoX-5B SR models (42-layer
    DiT, T5-XXL, causal VAE) with seeded random bf16 weights on the card
    and runs CogVideoSRPipeline.enhance_a_video on 25 frames of 480x720 (50
@@ -74,6 +75,16 @@ LN_PER_DIT_STEP = {'fused_ln': 42 * 3 + 2}
 # two final norms)
 COG_PATH_LAUNCHES = {'qk_ln_rope': 4200, 'flash_packed': 2100,
                      'fused_ln': 50 * LN_PER_DIT_STEP['fused_ln']}
+# K2 at d=512 in one I2VGen clip: the VAE encode of the 8 frames in one
+# call; the decode of their two 3-frame windows folded into one batch, then
+# of the last 2 frames (the train step's frequency loss decodes the same)
+D512_PER_CLIP = 3
+# the attention kernels of a train step: the training forward of the 21
+# spatial self-attentions twice (forward and remat recompute), K3 once
+# each, and the VAE decode of pred-x0
+ATTN_PER_TRAIN_STEP = {'flash_packed_lse': 42, 'flash_bwd': 21,
+                       'flash_d512': 2}
+TRAIN_TIMED_STEPS = 6
 # the train step's kernels: the UNet's under autograd, and the VAE decode of
 # pred-x0 for the frequency loss (no grad)
 TRAIN_PATH_KERNELS = ('flash_packed_lse', 'flash_bwd', 'flash_d512',
@@ -253,20 +264,33 @@ def check_kernels(dev) -> dict[str, dict]:
            [bsz, s, c])
     del q, k, v, out
 
-    # K2: SVD-VAE encoder mid attention, one head of 512 at 90x160, 8 frames
+    # K2 at d=512: the SVD-VAE mid attention, one head of 512 on the
+    # 90x160 latent grid. Held at the decoder's shape (its two 3-frame
+    # windows decode together), at a ragged S with a dead key tail, and at
+    # phase 2b's small VAE (3 frames of 24x24); then at the encoder's 8
+    # frames, which is also timed.
+    sc512 = 1 / math.sqrt(512)
+    for (bsz, s, kv) in ((6, 14400, 14400), (2, 1000, 777), (3, 576, 576)):
+        q, k, v = (randn(bsz, s, 1, 512) for _ in range(3))
+        agrees(f'K2 d=512 [{bsz},{s},1,512] kv_valid={kv}', [(
+            fa._launch(q, k, v, 1, 512, sc512 * fa.LOG2E, kv),
+            fa.attention_plain(q, k[:, :kv], v[:, :kv], sc512))])
+        del q, k, v
     bsz, s, d = 8, 14400, 512
     q, k, v = (randn(bsz, s, 1, d) for _ in range(3))
-    agree = agrees(f'K2 [{bsz},{s},1,{d}]', [(
-        fa.flash_attention(q, k, v),
-        fa.attention_plain(q, k, v, 1 / math.sqrt(d)))])
+    agree = agrees(f'K2 d=512 [{bsz},{s},1,{d}]', [(
+        fa.flash_attention(q, k, v), fa.attention_plain(q, k, v, sc512))])
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
-    plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, 1 / math.sqrt(d)),
-                       reps=1)
+    plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, sc512), reps=1)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
-    record('flash_d512', 'cuda', 'star_tpu_torch/csrc/flash_fwd.cu',
+    flops = 4.0 * bsz * s * s * d
+    log(f'K2 d=512 [{bsz},{s},1,{d}]: {flops / ms / 1e9:.0f} TFLOP/s, SDPA '
+        f'{flops / lib_ms / 1e9:.0f} TFLOP/s')
+    record('flash_d512', 'cuda', 'star_tpu_torch/csrc/flash_fwd_d512_sm90.cu',
            'star_tpu/ops/flash_attention.py:256', agree, ms, plain_ms,
-           4.0 * bsz * s * s * d, 4 * q.numel() * 2, lib_ms, [bsz, s, 1, d])
+           flops, 4 * q.numel() * 2, lib_ms, [bsz, s, 1, d])
+    results['flash_d512']['tflops'] = flops / ms / 1e9
     del q, k, v
 
     # K4: UNet temporal attention, 8 frames, 320 channels (5 heads) at
@@ -572,19 +596,20 @@ def check_train_kernels(dev, randn, record, results) -> None:
                                            (got[2][:, :777], want[2])])
         assert all(float(t[:, 777:].abs().max()) == 0.0 for t in got[1:])
     # the DiT's attention shape: 9680 tokens, 48 heads, the dead key tail
-    # of its padded stream (the plain versions one head or 8 heads at a
-    # time: the fp32 logits of 48 heads would take 18 GB)
+    # of its padded stream, a prescaled q (the plain versions one head or 8
+    # heads at a time: the fp32 logits of 48 heads would take 18 GB)
     s, c, h, kv = 9680, 3072, 48, 9676
-    q, k, v, do = (randn(1, s, c) for _ in range(4))
-    what = f'[1,{s},{c}] 48 heads kv_valid={kv}'
-    o, lse = lse_fwd(q, k, v, h, kv)
-    o_ref, lse_ref = packed_plain_chunked(q, k, v, h, kv, prescaled=False,
+    q, k, v, do = (randn(2, s, c) for _ in range(4))
+    q = (q.float() * (0.125 * fa.LOG2E)).to(torch.bfloat16)
+    what = f'[2,{s},{c}] 48 heads kv_valid={kv} prescaled'
+    o, lse = lse_fwd(q, k, v, h, kv, c=1.0)
+    o_ref, lse_ref = packed_plain_chunked(q, k, v, h, kv, prescaled=True,
                                           return_lse=True)
     agrees(f'K2 with_l {what}', [(o, o_ref)])
     lse_agrees(f'K2 with_l {what}', lse, lse_ref)
     del o_ref, lse_ref
-    got = fa._launch_bwd(q, k, v, o, lse, do, h, 0.125, kv)
-    want = bwd_plain_chunked(q, k[:, :kv], v[:, :kv], o, lse, do, h, 0.125)
+    got = fa._launch_bwd(q, k, v, o, lse, do, h, fa.LN2, kv)
+    want = bwd_plain_chunked(q, k[:, :kv], v[:, :kv], o, lse, do, h, fa.LN2)
     agrees(f'K3 {what}', [(got[0], want[0]), (got[1][:, :kv], want[1]),
                           (got[2][:, :kv], want[2])])
     assert all(float(t[:, kv:].abs().max()) == 0.0 for t in got[1:])
@@ -640,7 +665,12 @@ def check_train_kernels(dev, randn, record, results) -> None:
                              do[-1:], h, 0.125)
     agree = agrees(f'K3 [{bsz},{s},{c}] frame {bsz - 1}',
                    [(a[-1:], b) for a, b in zip(got, want)])
-    del got, want
+    # the dQ adds land in no fixed order: how far two launches differ
+    dq2 = fa._launch_bwd(q, k, v, o, lse, do, h, 0.125, s)[0]
+    dq_spread = float((got[0].float() - dq2.float()).abs().max())
+    log(f'K3 [{bsz},{s},{c}] dq of two launches: max |dq1 - dq2| '
+        f'{dq_spread:.3e} (max |dq| {float(got[0].abs().max()):.3e})')
+    del got, want, dq2
     ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, o, lse, do, h, 0.125, s),
                  reps=3)
     plain_ms = cuda_ms(lambda: bwd_plain_chunked(q, k, v, o, lse, do, h,
@@ -648,13 +678,16 @@ def check_train_kernels(dev, randn, record, results) -> None:
     out = F.scaled_dot_product_attention(qg, kg, vg)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), to4(do), retain_graph=True), reps=3)
-    # bytes: q, k, v, o, dO read, lse and D read, dq, dk, dv written
-    record('flash_bwd', 'cuda', 'star_tpu_torch/csrc/flash_bwd.cu',
+    flops = 10.0 * bsz * h * s * s * 64
+    log(f'K3 [{bsz},{s},{c}]: {flops / ms / 1e9:.0f} TFLOP/s, SDPA backward '
+        f'{flops / lib_ms / 1e9:.0f} TFLOP/s')
+    # bytes: q, k, v, o, dO read, lse read, dq, dk, dv written
+    record('flash_bwd', 'cuda', 'star_tpu_torch/csrc/flash_bwd_sm90.cu',
            'star_tpu/ops/flash_attention.py:592', agree, ms, plain_ms,
-           10.0 * bsz * h * s * s * 64,
-           8 * q.numel() * 2 + 2 * 4 * bsz * h * s, lib_ms, [bsz, s, c])
-    results['flash_bwd']['library'] = (
-        'the backward of F.scaled_dot_product_attention')
+           flops, 8 * q.numel() * 2 + 4 * bsz * h * s, lib_ms, [bsz, s, c])
+    results['flash_bwd'].update(
+        library='the backward of F.scaled_dot_product_attention',
+        tflops=flops / ms / 1e9, dq_run_to_run_max_abs=dq_spread)
     del q, k, v, do, o, lse, qg, kg, vg, out
     torch.cuda.synchronize()
 
@@ -1210,7 +1243,8 @@ def run_pipeline(dev) -> dict:
     n = len(unet_calls)
     assert_launches('clip', launches, {
         'fused_ln': n * LN_PER_CFG_STEP['fused_ln'] + 2 * LN_PER_TEXT_ENCODE,
-        'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln']})
+        'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln'],
+        'flash_d512': D512_PER_CLIP})
     return dict(models=models, pipe=pipe, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), unet_calls=len(unet_calls),
                 peak_gb=peak_gb, out_mean=float(out.mean()),
@@ -1324,14 +1358,29 @@ def profile_step(step, path: str) -> dict:
 # phase 5: the train step at full width
 
 
-def run_train(dev, models) -> dict:
+def gpu_state() -> str:
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm,power.draw,temperature.gpu',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else '?'
+
+
+def run_train(dev, models, profile: str | None = None) -> dict:
     """ControlNet+LIEM fine-tune steps on the full-width models: the bf16
     UNet+ControlNet of phase 3 as the compute copy, fp32 masters, remat,
     TrainConfig() (frequency loss on), 8 frames on the 90x160 latent grid
-    built as the training CLI builds its batch. One warm-up step and three
-    timed ones; checks finiteness, a gradient at the ControlNet's conv_in,
-    moved masters, bit-identical frozen parameters and the launches of
-    each step."""
+    built as the training CLI builds its batch. One warm-up step and
+    TRAIN_TIMED_STEPS timed ones, every step with the same t and noise (so
+    each does the same work); checks finiteness, a gradient at the
+    ControlNet's conv_in, moved masters, bit-identical frozen parameters
+    and the exact launches of each step. Beside each step's CUDA-event
+    time it logs the host time, the Python garbage collector's time inside
+    the step, the allocator's cudaMalloc/cudaFree calls and retries, and
+    the card's clock, power and temperature after it."""
+    import gc
+    import os
     import statistics
     import torch
     from star_tpu_torch import ops
@@ -1366,15 +1415,18 @@ def run_train(dev, models) -> dict:
     state, tx = make_train_state(cfg, unet)
     step = make_train_step(cfg, unet, DiffusionTables.from_schedule(
         default_star_schedule(), dev), tx, vae_decode=vae.decode)
+    # one t and one noise draw for every step: the same work in each
+    t = torch.randint(0, cfg.num_timesteps, (1,), generator=g, device=dev)
+    noise = torch.randn(gt_lat.shape, generator=g, device=dev)
     named = dict(unet.named_parameters())
     frozen = {n: p.detach().clone() for n, p in named.items()
               if n not in state.params}
     masters0 = {n: m.clone() for n, m in state.params.items()}
     log(f'train: {sum(m.numel() for m in masters0.values())} trainable '
         f'(fp32 masters), {sum(p.numel() for p in frozen.values())} frozen '
-        f'(bf16) parameters; batch {tuple(gt_lat.shape)}')
+        f'(bf16) parameters; batch {tuple(gt_lat.shape)}; t {int(t)}')
 
-    m = step.loss_and_grads(batch, g)
+    m = step.loss_and_grads(batch, t=t, noise=noise)
     conv_in = named['controlnet.conv_in.weight'].grad
     assert conv_in is not None and float(conv_in.abs().max()) > 0, \
         'no gradient reached the ControlNet conv_in'
@@ -1382,31 +1434,64 @@ def run_train(dev, models) -> dict:
         f'grad_norm {float(m["grad_norm"]):.5f}; ControlNet conv_in '
         f'gradient max {float(conv_in.abs().max()):.3e}')
 
+    gc_ms = [0.0]
+    gc_t0 = [0.0]
+
+    def gc_timer(phase, info):
+        if phase == 'start':
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
+    gc.callbacks.append(gc_timer)
+    # Python's cyclic collector: a full collection walks every object the
+    # process holds (models, tokenizer, optimizer state) and stalled the
+    # step it fell in by 0.5-0.9 s. Everything built so far is frozen out
+    # of its collections.
+    gc.collect()
+    gc.freeze()
     torch.cuda.reset_peak_memory_stats(dev)
-    times, per_step = [], []
-    for i in range(4):
-        ops.reset_launch_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, m = step(state, batch, g)
-        end.record()
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        ms = start.elapsed_time(end)
-        m = {k: float(v) for k, v in m.items()}
-        log(f'train step {i}{" (warm-up)" if i == 0 else ""}: {ms:.1f} ms; '
-            + ' '.join(f'{k} {v:.5f}' for k, v in m.items())
-            + f'; launches {counts}')
-        assert all(math.isfinite(v) for v in m.values()), m
-        assert m['grad_norm'] > 0, m
-        missing = [k for k in TRAIN_PATH_KERNELS if counts[k] <= 0]
-        assert not missing, f'kernels not launched in the train step: ' \
-            f'{missing}'
-        assert_launches(f'train step {i}', counts, LN_PER_TRAIN_STEP)
-        if i:
-            times.append(ms)
-            per_step.append(counts)
+    times, per_step, steps = [], [], []
+    try:
+        for i in range(1 + TRAIN_TIMED_STEPS):
+            ops.reset_launch_counts()
+            mem0 = torch.cuda.memory_stats(dev)
+            gc_ms[0] = 0.0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start.record()
+            state, m = step(state, batch, t=t, noise=noise)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - h0) * 1e3
+            mem1 = torch.cuda.memory_stats(dev)
+            counts = ops.launch_counts()
+            ms = start.elapsed_time(end)
+            m = {k: float(v) for k, v in m.items()}
+            delta = {k: mem1.get(k, 0) - mem0.get(k, 0)
+                     for k in ('num_device_alloc', 'num_device_free',
+                               'num_alloc_retries')}
+            card = gpu_state()
+            log(f'train step {i}{" (warm-up)" if i == 0 else ""}: {ms:.1f} '
+                f'ms (host {host_ms:.1f} ms, gc {gc_ms[0]:.1f} ms, '
+                f'allocator {delta}, after: {card}); '
+                + ' '.join(f'{k} {v:.5f}' for k, v in m.items())
+                + f'; launches {counts}')
+            assert all(math.isfinite(v) for v in m.values()), m
+            assert m['grad_norm'] > 0, m
+            missing = [k for k in TRAIN_PATH_KERNELS if counts[k] <= 0]
+            assert not missing, f'kernels not launched in the train step: ' \
+                f'{missing}'
+            assert_launches(f'train step {i}', counts,
+                            {**LN_PER_TRAIN_STEP, **ATTN_PER_TRAIN_STEP})
+            if i:
+                times.append(ms)
+                per_step.append(counts)
+                steps.append(dict(ms=ms, host_ms=host_ms, gc_ms=gc_ms[0],
+                                  allocator=delta, card=card))
+    finally:
+        gc.callbacks.remove(gc_timer)
+        gc.unfreeze()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     moved = {n: float((state.params[n] - m0).abs().sum())
              for n, m0 in masters0.items()}
@@ -1415,12 +1500,22 @@ def run_train(dev, models) -> dict:
     assert not changed, f'frozen parameters changed: {changed[:5]}'
     step_ms = statistics.median(times)
     log(f'train step [1, 8, 90x160, remat, frequency loss, bf16 + fp32 '
-        f'masters]: median {step_ms:.1f} ms of {[round(t, 1) for t in times]}'
-        f'; peak memory {peak_gb:.1f} GB; masters moved: '
+        f'masters]: median {step_ms:.1f} ms of {[round(x, 1) for x in times]}'
+        f' (spread {max(times) - min(times):.1f} ms); peak memory '
+        f'{peak_gb:.1f} GB; masters moved: '
         f'{sum(v > 0 for v in moved.values())} of {len(moved)} leaves; '
         f'frozen bit-identical: {len(frozen)} leaves')
-    return dict(step_ms=step_ms, steps_ms=times, peak_gb=peak_gb,
-                launches=per_step[-1], losses=m)
+    res = dict(step_ms=step_ms, steps_ms=times, steps=steps,
+               peak_gb=peak_gb, launches=per_step[-1], losses=m)
+    if profile:
+        root, ext = os.path.splitext(profile)
+
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch, t=t, noise=noise)
+        res['profile'] = profile_step(one_step,
+                                      f'{root}_train{ext or ".txt"}')
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1521,8 +1616,9 @@ def main() -> int:
                     help='kernels: build and check the kernels only')
     ap.add_argument('--profile', metavar='FILE',
                     help='also trace one CFG step with torch.profiler and '
-                    'write its device time by kernel to FILE, and one DiT '
-                    'CFG step to FILE with _dit before its extension')
+                    'write its device time by kernel to FILE, one train '
+                    'step to FILE with _train before its extension, and '
+                    'one DiT CFG step to FILE with _dit before it')
     args = ap.parse_args()
 
     import torch
@@ -1550,7 +1646,7 @@ def main() -> int:
     small['cog'] = check_small_cog(dev)
     run = run_pipeline(dev)
     step = time_cfg_step(dev, run['models'], args.profile)
-    train = run_train(dev, run['models'])
+    train = run_train(dev, run['models'], args.profile)
     # the I2VGen models go before the CogVideoX ones come, so that the Cog
     # clip's peak memory is its own
     del run['models'], run['pipe']
@@ -1576,8 +1672,9 @@ def main() -> int:
         unet_calls=run['unet_calls'],
         stages=run['stages'], peak_gb=run['peak_gb'], cfg_step_ms=step['ms'],
         profile=step.get('profile'), train_step_ms=train['step_ms'],
-        train_steps_ms=train['steps_ms'], train_peak_gb=train['peak_gb'],
-        train_losses=train['losses'], cog_clip_s=cog['clip_s'],
+        train_steps_ms=train['steps_ms'], train_steps=train['steps'],
+        train_peak_gb=train['peak_gb'], train_losses=train['losses'],
+        train_profile=train.get('profile'), cog_clip_s=cog['clip_s'],
         cog_dit_calls=cog['dit_calls'], cog_stages=cog['stages'],
         cog_init_s=cog['init_s'], cog_peak_gb=cog['peak_gb'],
         cog_out_mean=cog['out_mean'], cog_out_std=cog['out_std'],

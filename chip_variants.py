@@ -1,7 +1,7 @@
 """Time design variants of the port's hand-written kernels on one CUDA card.
 
-    python3 chip_variants.py            # K1 and K10/K11 variants
-    python3 chip_variants.py k1         # or only one family
+    python3 chip_variants.py            # K1, K10/K11, K3 and K2 d=512
+    python3 chip_variants.py k3 d512    # or only some families
 
 Each variant is a committed source (star_tpu_torch/csrc/) with a few lines
 replaced, every replacement checked to match: a deeper or shallower ring,
@@ -88,6 +88,75 @@ K1_VARIANTS = {
     'no_exp2_loads_once (timing only)': (
         K1_SRC, NO_EXP2 + [(LOAD, LOAD_ONCE)], False),
 }
+K3_SRC = 'flash_bwd_sm90.cu'
+K3_TILES = 'BQ = 64, STAGES = 2;'
+K3_VARIANTS = {
+    'stages3': (K3_SRC, [(K3_TILES, 'BQ = 64, STAGES = 3;')], True),
+    'bq128': (K3_SRC, [(K3_TILES, 'BQ = 128, STAGES = 2;')], True),
+    'ordered_dq': (K3_SRC, [('constexpr bool ORDERED_DQ = false;',
+                             'constexpr bool ORDERED_DQ = true;')], True),
+    'no_exp2 (timing only)': (K3_SRC, NO_EXP2, False),
+    'no_dq_adds (timing only)': (K3_SRC, [(
+        '      bulk_reduce_add(dqacc +', '      if (kb < 0) bulk_reduce_add(dqacc +')],
+        False),
+}
+D512_SRC = 'flash_fwd_d512_sm90.cu'
+# K1's order: S_j issued before P_{j-1} V_{j-1}, the softmax under it
+OVERLAP_S_O = [(
+    '    fence_op();\n    wgmma_fence();\n    issue_o(pst);\n'
+    '    wgmma_wait<0>();                       // P_{j-1} V_{j-1} has retired\n'
+    '    fence_op();\n    if (lane == 0) release(&sm.v_empty[pst]);\n'
+    '    wgmma_fence();\n    issue_s(st);\n'
+    '    wgmma_wait<0>();                       // S_j has landed\n'
+    '    fence_s();\n    if (lane == 0) release(&sm.k_empty[st]);\n'
+    '    if (SPLIT_S) exchange(j);\n    softmax(j, a0, a1);\n',
+    '    fence_op();\n    wgmma_fence();\n    issue_s(st);\n    issue_o(pst);\n'
+    '    wgmma_wait<1>();                       // S_j has landed\n'
+    '    fence_s();\n    if (lane == 0) release(&sm.k_empty[st]);\n'
+    '    if (SPLIT_S) exchange(j);\n    softmax(j, a0, a1);\n'
+    '    wgmma_wait<0>();                       // P_{j-1} V_{j-1} has retired\n'
+    '    fence_op();\n    if (lane == 0) release(&sm.v_empty[pst]);\n')]
+D512_TILES = 'BK = 32, STAGES = 2;'
+D512_VARIANTS = {
+    'full_s': (D512_SRC, [('constexpr bool SPLIT_S = true;',
+                           'constexpr bool SPLIT_S = false;')], True),
+    'cluster2': (D512_SRC, [('constexpr int CLUSTER = 1;',
+                             'constexpr int CLUSTER = 2;')], True),
+    'cluster2_full_s': (D512_SRC, [
+        ('constexpr int CLUSTER = 1;', 'constexpr int CLUSTER = 2;'),
+        ('constexpr bool SPLIT_S = true;',
+         'constexpr bool SPLIT_S = false;')], True),
+    'bk64_one_stage': (D512_SRC, [(D512_TILES, 'BK = 64, STAGES = 1;'),
+                                  ('constexpr int XBUF = 2;',
+                                   'constexpr int XBUF = 1;')], True),
+    'o_two_n128': (D512_SRC, [(
+        '      wgmma_rs<256, 1>(acc, p + 4 * kk, dv + 128 * kk, 1);',
+        '      {\n'
+        '        wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(acc),\n'
+        '                         p + 4 * kk, dv + 128 * kk, 1);\n'
+        '        wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(acc + 64),\n'
+        '                         p + 4 * kk, dv + 128 * kk + KPANEL / 4, 1);\n'
+        '      }')], True),
+    'desc_chain': (D512_SRC, [(
+        '      const int pn = pd0 + (kk >> 2);\n'
+        '      wgmma_ss<BK, 0, 0>(s, desc_sw128(sm.q[pn], 16, 1024) + 2 * (kk & 3),\n'
+        '                         desc_sw128(sm.k[st][pn], 16, 1024) + 2 * (kk & 3),\n'
+        '                         kk);\n',
+        '      wgmma_ss<BK, 0, 0>(s, qd, kd, kk);\n'
+        '      const uint64_t dq_ = (kk & 3) == 3 ? QPANEL / 8 - 6 : 2;\n'
+        '      const uint64_t dk_ = (kk & 3) == 3 ? KPANEL / 8 - 6 : 2;\n'
+        '      asm volatile("add.s64 %0, %0, %1;" : "+l"(qd) : "l"(dq_));\n'
+        '      asm volatile("add.s64 %0, %0, %1;" : "+l"(kd) : "l"(dk_));\n'),
+        ('  auto issue_s = [&](int st) {            // s = Q K^T over SPAN panels\n',
+         '  auto issue_s = [&](int st) {\n'
+         '    uint64_t qd = desc_sw128(sm.q[pd0], 16, 1024);\n'
+         '    uint64_t kd = desc_sw128(sm.k[st][pd0], 16, 1024);\n')], True),
+    'overlap_s_o': (D512_SRC, OVERLAP_S_O, True),
+    'regs_240': (D512_SRC, [('PRODUCER_REGS = 40, CONSUMER_REGS = 232;',
+                             'PRODUCER_REGS = 24, CONSUMER_REGS = 240;')],
+                 True),
+    'no_exp2 (timing only)': (D512_SRC, NO_EXP2, False),
+}
 LN_SRC = 'fused_ln.cu'
 
 
@@ -137,7 +206,8 @@ def build(variants: dict) -> dict:
             raise RuntimeError(f'{name}: nvcc failed\n{out[-3000:]}')
         regs = [ln.split(': ')[-1].strip() for ln in out.splitlines()
                 if 'Used' in ln or 'spill stores' in ln]
-        cs.log(f'{name}: {"; ".join(sorted(set(regs)))[:160]}')
+        cs.log(f'{name}: {"; ".join(sorted(set(regs)))[:160]}; '
+               f'{wgmma_waits(so)}')
         lib = ctypes.CDLL(so)
         for fn, sig in _build._SIGNATURES.items():
             if hasattr(lib, fn):
@@ -145,6 +215,28 @@ def build(variants: dict) -> dict:
                 getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def wgmma_waits(so: str) -> str:
+    """In the SASS of each wgmma kernel of `so` (cuobjdump): its wgmma
+    instructions (HGMMA), the waits on them (WARPGROUP.DEPBAR) and its
+    highest register. As many waits as products means ptxas serialised
+    them."""
+    import re
+    from star_tpu_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             'cuobjdump')
+    sass = subprocess.run([cuobjdump, '-sass', so], capture_output=True,
+                          text=True).stdout
+    out = []
+    for fn in re.split(r'\n\s*Function : ', sass)[1:]:
+        if 'HGMMA' not in fn:
+            continue
+        regs = [int(r) for r in re.findall(r'\bR(\d+)\b', fn)]
+        out.append(f'{fn.split(chr(10), 1)[0].strip()[:24]}: '
+                   f'{fn.count("HGMMA")} HGMMA, '
+                   f'{fn.count("WARPGROUP.DEPBAR")} waits, R{max(regs)}')
+    return '; '.join(out)
 
 
 def in_turn(libs: dict, run, reps: int) -> dict:
@@ -266,12 +358,116 @@ def ln(dev, g) -> list[dict]:
     return rows
 
 
+def k3(dev, g) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import _build, flash_attention as fa
+    libs = build(K3_VARIANTS)
+    checked = {'base'} | {k for k, v in K3_VARIANTS.items() if v[2]}
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+
+    def call(lib, q, k, v, o, lse, do, h, scale, kv):
+        b, sq, c = q.shape
+        sk = k.shape[1]
+        # room for the largest query tile of the variants (128 rows)
+        ws = torch.empty(max(
+            4 * b * h * (-(-sq // t) * t * (fa.K3_D + 2) + -(-sq // t))
+            for t in (64, 128)), dtype=torch.uint8, device=dev)
+        dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+        err = lib.star_flash_bwd_d64(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), ws.data_ptr(), b, h, sq, sk, kv, sq * c, sk * c,
+            c, float(scale), _build.stream_ptr(dev))
+        _build.check(err, 'star_flash_bwd_d64')
+        return dq, dk, dv
+
+    q, k, v, do = (randn(2, 1000, 320) for _ in range(4))
+    o, lse = fa._launch(q, k, v, 5, 64, 0.125 * fa.LOG2E, 777, want_lse=True)
+    want = fa.flash_bwd_plain(q, k[:, :777], v[:, :777], o, lse, do, 5,
+                              0.125)
+    for name in sorted(checked):
+        got = call(libs[name], q, k, v, o, lse, do, 5, 0.125, 777)
+        cs.agrees(f'K3 {name} [2,1000,320] kv_valid=777', [
+            (got[0], want[0]), (got[1][:, :777], want[1]),
+            (got[2][:, :777], want[2])])
+        assert all(float(t[:, 777:].abs().max()) == 0.0 for t in got[1:])
+    rows = []
+    for (bsz, s, c) in ((8, 14400, 320), (8, 3680, 640)):
+        h = c // 64
+        q, k, v, do = (randn(bsz, s, c) for _ in range(4))
+        o, lse = fa._launch(q, k, v, h, 64, 0.125 * fa.LOG2E, s,
+                            want_lse=True)
+        res = in_turn(libs, lambda lib: call(lib, q, k, v, o, lse, do, h,
+                                             0.125, s), reps=3)
+        to4 = lambda t: t.view(bsz, s, h, 64).transpose(1, 2)
+        qg, kg, vg = (to4(t).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+        sdpa = [cs.cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), to4(do), retain_graph=True), reps=3,
+            warmup=1) for _ in range(2)]
+        flops = 10.0 * bsz * h * s * s * 64
+        for name, ms in list(res.items()) + [('SDPA backward', sdpa)]:
+            rows.append(dict(kernel='K3', variant=name, shape=[bsz, s, c],
+                             ms=ms, tflops=flops / min(ms) / 1e9))
+            cs.log(f'K3 {name:24s} [{bsz},{s},{c}]: '
+                   + ' '.join(f'{m:.3f}' for m in ms)
+                   + f' ms, {rows[-1]["tflops"]:.0f} TFLOP/s')
+        del q, k, v, do, o, lse, qg, kg, vg, out
+    return rows
+
+
+def d512(dev, g) -> list[dict]:
+    import math
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import _build, flash_attention as fa
+    libs = build(D512_VARIANTS)
+    checked = {'base'} | {k for k, v in D512_VARIANTS.items() if v[2]}
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+    c = fa.LOG2E / math.sqrt(512)
+
+    def call(lib, q, k, v, kv):
+        b, sq = q.shape[:2]
+        sk = k.shape[1]
+        o = torch.empty_like(q)
+        err = lib.star_flash_fwd_d512(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, 1, sq,
+            sk, kv, sq * 512, sk * 512, sk * 512, sq * 512, 512, 512, 512,
+            512, c, _build.stream_ptr(dev))
+        _build.check(err, 'star_flash_fwd_d512')
+        return o
+
+    for (bsz, s, kv) in ((2, 1000, 777), (3, 150, 150)):
+        q, k, v = (randn(bsz, s, 1, 512) for _ in range(3))
+        ref = fa.attention_plain(q, k[:, :kv], v[:, :kv], 1 / math.sqrt(512))
+        for name in sorted(checked):
+            cs.agrees(f'K2 d=512 {name} [{bsz},{s},1,512] kv_valid={kv}',
+                      [(call(libs[name], q, k, v, kv), ref)])
+    rows = []
+    bsz, s = 8, 14400
+    q, k, v = (randn(bsz, s, 1, 512) for _ in range(3))
+    res = in_turn(libs, lambda lib: call(lib, q, k, v, s), reps=5)
+    tr = lambda t: t.transpose(1, 2)
+    sdpa = [cs.cuda_ms(lambda: F.scaled_dot_product_attention(
+        tr(q), tr(k), tr(v)), reps=5, warmup=1) for _ in range(2)]
+    flops = 4.0 * bsz * s * s * 512
+    for name, ms in list(res.items()) + [('SDPA', sdpa)]:
+        rows.append(dict(kernel='K2 d=512', variant=name,
+                         shape=[bsz, s, 1, 512], ms=ms,
+                         tflops=flops / min(ms) / 1e9))
+        cs.log(f'K2 d=512 {name:24s} [{bsz},{s},1,512]: '
+               + ' '.join(f'{m:.3f}' for m in ms)
+               + f' ms, {rows[-1]["tflops"]:.0f} TFLOP/s')
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print('chip_variants: no CUDA device', file=sys.stderr)
         return 2
-    which = sys.argv[1:] or ['k1', 'ln']
+    which = sys.argv[1:] or ['k1', 'ln', 'k3', 'd512']
     card = cs.card_line()
     cs.log(f'card: {card}')
     dev = torch.device('cuda', 0)
@@ -281,6 +477,10 @@ def main() -> int:
         rows += k1(dev, g)
     if 'ln' in which:
         rows += ln(dev, g)
+    if 'k3' in which:
+        rows += k3(dev, g)
+    if 'd512' in which:
+        rows += d512(dev, g)
     clocks = subprocess.run(
         ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
          '--format=csv,noheader'], capture_output=True, text=True).stdout

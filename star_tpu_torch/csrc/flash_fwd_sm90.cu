@@ -8,7 +8,7 @@
 //   K2 `with_l` (`_flash_fwd(..., with_l=True)`, :256, the training forward
 //      of `_fwd`): the same kernel with an optional fp32 output `lse`
 //      [B*H, Sq], the natural log-sum-exp m + log l of each row's
-//      max-subtracted softmax, which K3 (csrc/flash_bwd.cu) reads. A null
+//      max-subtracted softmax, which K3 (csrc/flash_bwd_sm90.cu) reads. A null
 //      `lse` is the inference path.
 // The softmax is the max-subtracted online softmax in fp32, in the log2
 // domain (logits times c = scale*log2(e), or 1 for a prescaled q); keys at
@@ -125,14 +125,14 @@ __device__ __forceinline__ void k1_consumer(k1::Smem& sm, int wg,
     const uint64_t dk = desc_sw128(sm.k[st], 16, 1024);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+      wgmma_ss<128, 0, 0>(s, dq + 2 * kk, dk + 2 * kk, kk);
     wgmma_commit();
   };
   auto issue_o = [&](int st) {            // o += P V
     const uint64_t dv = desc_sw128(sm.v[st], 8192, 1024);
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      wgmma_m64n64k16_rs_tb(o, p + 4 * kk, dv + 128 * kk, 1);
+      wgmma_rs<64, 1>(o, p + 4 * kk, dv + 128 * kk, 1);
     wgmma_commit();
   };
   // online softmax of tile j in place: s becomes P (fp32); returns the
@@ -280,7 +280,7 @@ __device__ __forceinline__ void k1_consumer(k1::Smem& sm, int wg,
   bar_sync(EPI + wg, 128);
   if (tid == 0 && q0 + wg * 64 < Sq) {
     tma_store_3d(to, ob, h * D, q0 + wg * 64, b);
-    tma_store_wait();
+    bulk_wait_read<0>();
   }
 }
 
@@ -358,6 +358,12 @@ extern "C" int star_flash_fwd_d64(const void* q, const void* k, const void* v,
     if ((rs[i] * 2) % 16 || (bs[i] * 2) % 16 || rs[i] < (long long)H * D ||
         ((uintptr_t)ptr[i]) % 16)
       return (int)cudaErrorInvalidValue;
+  // a runtime call before the driver's tensor-map encoder: it binds this
+  // host thread to the device's context (the remat recompute runs on
+  // autograd's own thread)
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_d64_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, to;
   const uint64_t w = (uint64_t)H * D;
   if (!sm90::encode_bf16_3d(&tq, q, w, Sq, B, q_rs * 2, q_bs * 2, BQ) ||
@@ -365,9 +371,6 @@ extern "C" int star_flash_fwd_d64(const void* q, const void* k, const void* v,
       !sm90::encode_bf16_3d(&tv, v, w, kv_valid, B, v_rs * 2, v_bs * 2, BK) ||
       !sm90::encode_bf16_3d(&to, o, w, Sq, B, o_rs * 2, o_bs * 2, 64))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_d64_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_d64_sm90<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
       tq, tk, tv, to, (float*)lse, H, Sq, kv_valid, c);

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) primitives for the port's warp-specialised kernels, in
-// raw PTX, as mma_sm80.cuh is for mma.sync: mbarriers, TMA tensor copies
-// (3-D, 128-byte swizzle) and their tensor maps, wgmma descriptors, fences
-// and the two products K1 needs, named barriers and setmaxnreg.
+// Hopper (sm_90a) primitives for the port's warp-specialised attention
+// kernels (K1/K2 in flash_fwd_sm90.cu and flash_fwd_d512_sm90.cu, K3 in
+// flash_bwd_sm90.cu), in raw PTX: mbarriers (also across a cluster), TMA
+// tensor copies (3-D, 128-byte swizzle, multicast) and bulk copies, their
+// tensor maps, wgmma descriptors, fences and products, named barriers and
+// setmaxnreg.
 //
 // The tensor map is encoded on the host with cuTensorMapEncodeTiled, found
 // through the CUDA runtime's entry-point query, so the library links no
@@ -86,6 +88,58 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the same box into the same offset of every CTA of the cluster in
+// `mask`; completes `bytes` on the barrier at `bar`'s offset in each
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of global
+// memory -> shared memory; completes `bytes` on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// global fp32 at dst += shared fp32 at src, `bytes` (a multiple of 16,
+// both 16-byte aligned) by one bulk reduce, committed as its own group
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const float* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk groups (TMA stores, bulk reduces): at most N still
+// reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's bulk groups: at most N not yet complete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // shared memory -> the box at (c0, c1, c2); elements outside the tensor
 // are not written
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
@@ -99,15 +153,41 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// the issuing thread's stores have read their shared memory
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
 // orders this thread's plain shared-memory writes before later async-proxy
 // reads (a TMA store)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// clusters
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster arrives and waits (also orders
+// the barrier initialisations before the peers' use of them)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::
+          : "memory");
+}
+
+// one arrival on the barrier at `bar`'s offset in CTA `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+          remote)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -172,43 +252,144 @@ __device__ __forceinline__ void fence_reg(uint32_t& r) {
 #define SM90_F8(i)                                                    \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SM90_F16 SM90_F8(0), SM90_F8(8)
+#define SM90_F32 SM90_F16, SM90_F8(16), SM90_F8(24)
+#define SM90_F64                                                      \
+  SM90_F32, SM90_F8(32), SM90_F8(40), SM90_F8(48), SM90_F8(56)
+#define SM90_F128                                                     \
+  SM90_F64, SM90_F8(64), SM90_F8(72), SM90_F8(80), SM90_F8(88),       \
+      SM90_F8(96), SM90_F8(104), SM90_F8(112), SM90_F8(120)
 
-// d[64x128] (+)= A[64x16] B[16x128]: A and B bf16 in shared memory, both
-// K-major; fp32 accumulate. scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
-                                                    uint64_t da, uint64_t db,
-                                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32),
-        SM90_F8(40), SM90_F8(48), SM90_F8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
+// d[64xN] (+)= A[64x16] B[16xN], N in {32, 64, 128, 256}: A and B bf16 in
+// shared memory, TA / TB their transpose bits (0: K-major, K contiguous;
+// 1: MN-major, M or N contiguous); fp32 accumulate; scale_d = 0
+// overwrites d. Accumulator layout: warp w of the group holds rows 16w + g
+// and 16w + g + 8 (g = lane / 4); register 4i + e holds column
+// 8i + 2*(lane % 4) + (e & 1) of row 16w + g (e < 2) or 16w + g + 8.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : SM90_F16
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : SM90_F32
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : SM90_F64
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127}, "
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
+        : SM90_F128
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
 }
 
-// d[64x64] (+)= A[64x16] B[16x64]: A bf16 from registers (the m16n8k16
-// A-fragment layout, one 16-row slice per warp), B bf16 in shared memory
-// MN-major (rows of K, N contiguous: the transpose bit); fp32 accumulate.
-__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
-                                                      const uint32_t* a,
-                                                      uint64_t db,
-                                                      int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+// d[64xN] (+)= A[64x16] B[16xN]: A bf16 from registers (four registers a
+// thread in the accumulator's layout: a[0] rows g / columns 2t..2t+1,
+// a[1] rows g + 8, a[2] and a[3] the same at columns + 8, so an fp32
+// accumulator packs pairwise into the A of the next product), B bf16 in
+// shared memory with transpose bit TB; fp32 accumulate.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t* a, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : SM90_F16
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : SM90_F32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : SM90_F64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  } else if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : SM90_F128
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  }
 }
 
+#undef SM90_F128
+#undef SM90_F64
+#undef SM90_F32
+#undef SM90_F16
 #undef SM90_F8
 
 // ---------------------------------------------------------------------------

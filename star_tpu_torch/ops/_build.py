@@ -44,10 +44,10 @@ _SIGNATURES = {
     # q/k/v/o row strides, c (= scale*log2e), stream
     'star_flash_fwd_d512': [P, P, P, P, I, I, I, I, I, L, L, L, L,
                             I, I, I, I, Fl, P],
-    # q, k, v, dout, lse, dvec, dq, dk, dv, B, H, Sq, Sk, kv_valid,
-    # q-side / k-side batch strides, row stride, scale, stream
-    'star_flash_bwd_d64': [P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L,
-                           I, Fl, P],
+    # q, k, v, o, dout, lse, dq, dk, dv, workspace, B, H, Sq, Sk,
+    # kv_valid, q-side / k-side batch strides, row stride, scale, stream
+    'star_flash_bwd_d64': [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, L,
+                           L, I, Fl, P],
     # q, k, v, o, B, F, N, H, scale, stream
     'star_temporal_attention': [P, P, P, P, I, I, I, I, Fl, P],
     # x, a, b, w, bias, residual, out, sum, sumsq, B, F, N, C, Cout,

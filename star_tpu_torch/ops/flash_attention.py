@@ -9,14 +9,16 @@
   K2 `with_l` and K3, the training path of d=64 attention (both entry
      points): when grad mode is on and an input requires grad, the
      forward is the d=64 kernel writing the natural log-sum-exp of each
-     row (`lse` [B, H, Sq]) and the backward is csrc/flash_bwd.cu, the
-     recompute backward (Pallas `_flash_bwd`). The JAX package saves the
-     fixed-reference denominators l instead; the gradient is the same
+     row (`lse` [B, H, Sq]) and the backward is csrc/flash_bwd_sm90.cu,
+     the recompute backward (Pallas `_flash_bwd`). The JAX package saves
+     the fixed-reference denominators l instead; the gradient is the same
      function.
 
-The d=64 forward (K1 and K2 `with_l`) is csrc/flash_fwd_sm90.cu (wgmma fed
-by TMA, warp-specialised); its launch arithmetic is `k1_launch_plan`. The
-d=512 forward is csrc/flash_fwd.cu.
+All three are wgmma kernels fed by TMA, warp-specialised, over
+csrc/sm90.cuh: the d=64 forward (K1 and K2 `with_l`) is
+csrc/flash_fwd_sm90.cu, the d=512 forward csrc/flash_fwd_d512_sm90.cu and
+the backward csrc/flash_bwd_sm90.cu. Their launch arithmetic is
+`k1_launch_plan`, `d512_launch_plan` and `k3_launch_plan`.
 
 Every kernel runs for a CUDA tensor (or raises if it does not take the
 input), and its plain PyTorch version for a CPU tensor. The plain forward
@@ -102,6 +104,36 @@ def flash_bwd_plain(q, k, v, o, lse, do, num_heads: int, scale: float):
 # 128-byte swizzled row
 K1_BQ, K1_BK, K1_D = 128, 128, 64
 K1_THREADS = 384      # a producer warpgroup and two consumer warpgroups
+# K2 at d=512 (csrc/flash_fwd_d512_sm90.cu): 64 query rows a block, two
+# consumer warpgroups of 256 output columns each, 32 keys a tile, rows in
+# eight 64-column panels
+D512_BQ, D512_BK, D512_D = 64, 32, 512
+D512_THREADS = 384
+# K3 (csrc/flash_bwd_sm90.cu): 128 keys a block (two consumer warpgroups
+# of 64), query tiles of 64 rows
+K3_BK, K3_BQ, K3_D = 128, 64, 64
+K3_THREADS = 384
+
+
+def _check_launch(bsz, heads, sq, kv, head_dim, row, what):
+    if min(bsz, heads, sq) < 1 or kv < 1:
+        raise ValueError(f'{what}: empty launch (B {bsz}, H {heads}, '
+                         f'Sq {sq}, live keys {kv})')
+    if row < heads * head_dim:
+        raise ValueError(f'{what}: row stride {row} < {heads} heads '
+                         f'x {head_dim}')
+    if row * 2 % 16:
+        raise ValueError(f'{what}: TMA needs a row pitch that is a '
+                         f'multiple of 16 bytes, got {row * 2}')
+    if bsz * heads > 65535:
+        raise ValueError(f'{what}: B*H = {bsz * heads} > 65535')
+
+
+def _tmap(width, pitch, rows, box_rows, seq, bsz):
+    """A 3-D TMA tensor map over [bsz, seq, row] bf16 read `rows` deep:
+    dims and boxes innermost first, strides in bytes of dims 1 and 2."""
+    return dict(dims=(width, rows, bsz), strides=(pitch, seq * pitch),
+                box=(64, box_rows, 1))
 
 
 def k1_launch_plan(bsz: int, heads: int, sq: int, sk: int, kv_valid: int,
@@ -119,35 +151,76 @@ def k1_launch_plan(bsz: int, heads: int, sq: int, sk: int, kv_valid: int,
     if head_dim != K1_D:
         raise ValueError(f'the d=64 flash kernel takes head_dim 64, not '
                          f'{head_dim}')
-    if min(bsz, heads, sq) < 1 or kv < 1:
-        raise ValueError(f'flash kernel: empty launch (B {bsz}, H {heads}, '
-                         f'Sq {sq}, live keys {kv})')
-    if row < heads * head_dim:
-        raise ValueError(f'flash kernel: row stride {row} < {heads} heads '
-                         f'x {head_dim}')
-    pitch = row * 2
-    if pitch % 16:
-        raise ValueError(f'flash kernel: TMA needs a row pitch that is a '
-                         f'multiple of 16 bytes, got {pitch}')
-    if bsz * heads > 65535:
-        raise ValueError(f'flash kernel: B*H = {bsz * heads} > 65535')
-    width = heads * head_dim
-
-    def tmap(rows, box_rows, seq):
-        return dict(dims=(width, rows, bsz), strides=(pitch, seq * pitch),
-                    box=(K1_D, box_rows, 1))
-    return dict(q=tmap(sq, K1_BQ, sq), k=tmap(kv, K1_BK, sk),
-                v=tmap(kv, K1_BK, sk), o=tmap(sq, K1_BQ // 2, sq),
+    _check_launch(bsz, heads, sq, kv, head_dim, row, 'flash kernel')
+    width, pitch = heads * head_dim, row * 2
+    return dict(q=_tmap(width, pitch, sq, K1_BQ, sq, bsz),
+                k=_tmap(width, pitch, kv, K1_BK, sk, bsz),
+                v=_tmap(width, pitch, kv, K1_BK, sk, bsz),
+                o=_tmap(width, pitch, sq, K1_BQ // 2, sq, bsz),
                 grid=(-(-sq // K1_BQ), bsz * heads), threads=K1_THREADS,
                 kv_valid=kv, live_tiles=-(-kv // K1_BK))
+
+
+def d512_launch_plan(bsz: int, heads: int, sq: int, sk: int, kv_valid: int,
+                     head_dim: int = 512,
+                     row_stride: int | None = None) -> dict:
+    """What the d=512 forward launches for bf16 q [bsz, sq, row], k/v
+    [bsz, sk, row], head h at column h*512: the 3-D tensor maps (eight
+    64-column boxes a row: Q in 64-row boxes, K and V in 32-row boxes),
+    the grid of 64-row query blocks, the live key tiles; kv_valid clipped
+    to sk, the K/V maps ending there. Raises ValueError on what the kernel
+    does not take."""
+    row = heads * head_dim if row_stride is None else row_stride
+    kv = min(kv_valid, sk)
+    if head_dim != D512_D:
+        raise ValueError(f'the d=512 flash kernel takes head_dim 512, not '
+                         f'{head_dim}')
+    _check_launch(bsz, heads, sq, kv, head_dim, row, 'd=512 flash kernel')
+    width, pitch = heads * head_dim, row * 2
+    return dict(q=_tmap(width, pitch, sq, D512_BQ, sq, bsz),
+                k=_tmap(width, pitch, kv, D512_BK, sk, bsz),
+                v=_tmap(width, pitch, kv, D512_BK, sk, bsz),
+                panels=D512_D // 64,
+                grid=(-(-sq // D512_BQ), bsz * heads), threads=D512_THREADS,
+                kv_valid=kv, live_tiles=-(-kv // D512_BK))
+
+
+def k3_launch_plan(bsz: int, heads: int, sq: int, sk: int, kv_valid: int,
+                   head_dim: int = 64) -> dict:
+    """What the d=64 backward launches for bf16 q/o/dO [bsz, sq, heads*64]
+    and k/v [bsz, sk, heads*64]: the 3-D tensor maps of q and dO (64-row
+    boxes) and of K and V (128-row boxes, ending at kv_valid clipped to
+    sk), the main kernel's grid of 128-key blocks, its query tiles, and
+    the workspace (4 * (B*H*Sq_pad*66 + B*H*tiles) bytes, Sq_pad = Sq
+    rounded up to the query tile: the fp32 dQ, B*H*Sq_pad*64 in the
+    kernel's tile order, D and the log2 lse [B*H, Sq_pad], a semaphore per
+    query tile). Raises ValueError on what the kernel does not take."""
+    kv = min(kv_valid, sk)
+    if head_dim != K3_D:
+        raise ValueError(f'the flash backward kernel takes head_dim 64, '
+                         f'not {head_dim}')
+    width = heads * head_dim
+    _check_launch(bsz, heads, sq, kv, head_dim, width,
+                  'flash backward kernel')
+    pitch, bh = width * 2, bsz * heads
+    tiles = -(-sq // K3_BQ)
+    sq_pad = tiles * K3_BQ
+    return dict(q=_tmap(width, pitch, sq, K3_BQ, sq, bsz),
+                do=_tmap(width, pitch, sq, K3_BQ, sq, bsz),
+                k=_tmap(width, pitch, kv, K3_BK, sk, bsz),
+                v=_tmap(width, pitch, kv, K3_BK, sk, bsz),
+                grid=(-(-kv // K3_BK), bh), threads=K3_THREADS,
+                query_tiles=tiles, sq_pad=sq_pad,
+                workspace_bytes=4 * (bh * sq_pad * (K3_D + 2) + bh * tiles),
+                kv_valid=kv, live_tiles=-(-kv // K3_BK))
 
 
 def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
             want_lse: bool = False):
     """Launch the d=64 forward (csrc/flash_fwd_sm90.cu) or the d=512 one
-    (csrc/flash_fwd.cu) on q/k/v whose rows are [S, heads*d] with head h
-    at column h*d; returns the output in q's layout (and with `want_lse`,
-    d=64 only, the fp32 log-sum-exp [B, heads, Sq])."""
+    (csrc/flash_fwd_d512_sm90.cu) on q/k/v whose rows are [S, heads*d]
+    with head h at column h*d; returns the output in q's layout (and with
+    `want_lse`, d=64 only, the fp32 log-sum-exp [B, heads, Sq])."""
     global PACKED_LAUNCHES, LSE_LAUNCHES, D512_LAUNCHES
     name = {64: 'star_flash_fwd_d64', 512: 'star_flash_fwd_d512'}.get(d)
     if name is None or (want_lse and d != 64):
@@ -168,10 +241,10 @@ def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
     bsz, sq = q.shape[0], q.shape[1]
     sk = k.shape[1]
     row = heads * d
-    if d == 64:
-        kv_valid = k1_launch_plan(bsz, heads, sq, sk, kv_valid)['kv_valid']
+    plan = (k1_launch_plan if d == 64 else d512_launch_plan)(
+        bsz, heads, sq, sk, kv_valid)
     out = torch.empty_like(q)
-    strides = (bsz, heads, sq, sk, max(0, min(kv_valid, sk)),
+    strides = (bsz, heads, sq, sk, plan['kv_valid'],
                sq * row, sk * row, sk * row, sq * row, row, row, row, row,
                float(c), _build.stream_ptr(q.device))
     fn = getattr(_build.lib(), name)
@@ -196,7 +269,8 @@ def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
 
 def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float,
                 kv_valid: int):
-    """Launch csrc/flash_bwd.cu (K3); q/o/do [B, Sq, H*64], k/v
+    """Launch csrc/flash_bwd_sm90.cu (K3: the D/lse preprocess, the main
+    kernel and the dQ conversion, one call); q/o/do [B, Sq, H*64], k/v
     [B, Sk, H*64], lse [B, H, Sq] fp32. Key rows >= kv_valid get zero
     gradients."""
     global BWD_LAUNCHES
@@ -215,18 +289,20 @@ def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float,
             or lse.shape != (bsz, heads, sq):
         raise ValueError(f'flash backward kernel: q {tuple(q.shape)} k '
                          f'{tuple(k.shape)} lse {tuple(lse.shape)}')
-    kv = max(0, min(kv_valid, sk))
-    dvec = (do.float() * o.float()).view(bsz, sq, heads, 64).sum(-1)
-    dvec = dvec.transpose(1, 2).contiguous()                 # [B, H, Sq]
+    plan = k3_launch_plan(bsz, heads, sq, sk, kv_valid)
+    kv = plan['kv_valid']
     lse = lse.float().contiguous()
-    dq = torch.empty_like(q)
-    zero_tail = torch.zeros_like if kv < sk else torch.empty_like
-    dk, dv = zero_tail(k), zero_tail(v)
+    ws = torch.empty(plan['workspace_bytes'], dtype=torch.uint8,
+                     device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if kv < sk:     # the kernel writes the live key rows only
+        dk[:, kv:].zero_()
+        dv[:, kv:].zero_()
     err = _build.lib().star_flash_bwd_d64(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bsz, heads, sq, sk, kv, sq * c, sk * c, c,
-        float(scale), _build.stream_ptr(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), ws.data_ptr(), bsz, heads, sq, sk, kv, sq * c,
+        sk * c, c, float(scale), _build.stream_ptr(q.device))
     _build.check(err, 'star_flash_bwd_d64')
     BWD_LAUNCHES += 1
     return dq, dk, dv

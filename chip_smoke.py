@@ -84,6 +84,89 @@ D512_PER_CLIP = 3
 # each, and the VAE decode of pred-x0
 ATTN_PER_TRAIN_STEP = {'flash_packed_lse': 42, 'flash_bwd': 21,
                        'flash_d512': 2}
+# K5 and K6 launches by shape, from the models' structure (derived on the
+# CPU from the full-depth models at narrow widths and held there by
+# tests/test_torch_conv_sm90.py), at full width: (kernel, leading dims,
+# latent or pixel grid, C, Cout, with a residual) -> launches. One
+# UNet+ControlNet CFG call (8 frames on the 90x160 latent grid, the CFG
+# pair; the ControlNet's first level runs on the unpaired x); a VAE encode
+# of 8 frames of 720x1280; one VAE decoder call on windows (B, F), as the
+# two calls of a clip's decode run it on (2, 3) and (1, 2).
+UNET_K5_PER_CFG_CALL = {
+    ((2, 8), (90, 160), 320, 320, False): 15,
+    ((2, 8), (90, 160), 320, 320, True): 5,
+    ((1, 8), (90, 160), 320, 320, False): 6,
+    ((1, 8), (90, 160), 320, 320, True): 2,
+    ((2, 8), (45, 80), 640, 640, False): 21,
+    ((2, 8), (45, 80), 640, 640, True): 7,
+    ((2, 8), (23, 40), 1280, 1280, False): 21,
+    ((2, 8), (23, 40), 1280, 1280, True): 7,
+    ((2, 8), (12, 20), 1280, 1280, False): 33,
+    ((2, 8), (12, 20), 1280, 1280, True): 11}
+VAE_K6_PER_ENCODE = {
+    ((8,), (720, 1280), 128, 128, False): 2,
+    ((8,), (720, 1280), 128, 128, True): 2,
+    ((8,), (360, 640), 128, 256, False): 1,
+    ((8,), (360, 640), 256, 256, False): 1,
+    ((8,), (360, 640), 256, 256, True): 2,
+    ((8,), (180, 320), 256, 512, False): 1,
+    ((8,), (180, 320), 512, 512, False): 1,
+    ((8,), (180, 320), 512, 512, True): 2,
+    ((8,), (90, 160), 512, 512, False): 4,
+    ((8,), (90, 160), 512, 512, True): 4}
+
+
+def vae_decode_per_call(bsz, f):
+    """K5 and K6 launches of one decoder call on `bsz` windows of `f`
+    frames (the 3x3 convs run on the bsz*f images)."""
+    k5, k6 = {}, {}
+    for grid, c, n5, n6 in (((90, 160), 512, 5, 5), ((180, 320), 512, 3, 3),
+                            ((360, 640), 256, 3, 2), ((720, 1280), 128, 3,
+                                                      2)):
+        k5[((bsz, f), grid, c, c, False)] = n5
+        k5[((bsz, f), grid, c, c, True)] = n5   # the alpha fold, per frame
+        k6[((bsz * f,), grid, c, c, False)] = n6
+        k6[((bsz * f,), grid, c, c, True)] = n5
+    # the up blocks' first conv halves the channels
+    k6[((bsz * f,), (360, 640), 512, 256, False)] = 1
+    k6[((bsz * f,), (720, 1280), 256, 128, False)] = 1
+    return k5, k6
+
+
+K5_PER_CFG_STEP = sum(UNET_K5_PER_CFG_CALL.values())        # 128
+K5_PER_DECODE = sum(vae_decode_per_call(2, 3)[0].values())   # 28
+K6_PER_DECODE = sum(vae_decode_per_call(2, 3)[1].values())   # 28
+K6_PER_ENCODE = sum(VAE_K6_PER_ENCODE.values())              # 20
+
+
+def unet_k5(batch: int) -> dict:
+    """K5 launches of one UNet+ControlNet call on `batch` (the CFG pair:
+    2, with the ControlNet's first level on 1; training: 1)."""
+    out = {}
+    for (lead, *rest), n in UNET_K5_PER_CFG_CALL.items():
+        key = ((min(lead[0], batch), lead[1]), *rest)
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def bound_sum_ms(kind: str, *tables: dict) -> float:
+    """Sum over shapes of launches x bound (bound_ms) of K5 or K6."""
+    total = 0.0
+    for table in tables:
+        for (lead, grid, c, cout, res), n in table.items():
+            m = math.prod(lead) * grid[0] * grid[1]
+            flops = 2.0 * m * (3 if kind == 'k5' else 9) * c * cout
+            nbytes = 2 * (m * c + m * cout * (2 if res else 1)
+                          + (3 if kind == 'k5' else 9) * c * cout)
+            total += n * bound_ms(flops, nbytes)[0]
+    return total
+
+
+# the bound of each path's K5 and K6 launches (ms): a CFG step, a train
+# step (forward and remat recompute, the decode of pred-x0), a clip (14
+# CFG steps, the encode of 8 frames, the two decoder calls)
+DECODE_K5 = (vae_decode_per_call(2, 3)[0], vae_decode_per_call(1, 2)[0])
+DECODE_K6 = (vae_decode_per_call(2, 3)[1], vae_decode_per_call(1, 2)[1])
 TRAIN_TIMED_STEPS = 6
 # the train step's kernels: the UNet's under autograd, and the VAE decode of
 # pred-x0 for the frequency loss (no grad)
@@ -319,10 +402,11 @@ def check_kernels(dev) -> dict[str, dict]:
            [bsz, f, n, c])
     del q, k, v
 
-    # K5: UNet TemporalConvBlockV2 stage at 320 channels (16 frames of
-    # 90x160 as a cfg pair of 8) with a residual, and the VAE decoder's
-    # alpha-folded conv2 at 128 channels (two 3-frame windows of 720x1280)
-    # with per-frame statistics
+    # K5 at every shape of the main paths: the UNet's TemporalConvBlockV2
+    # stages at its four levels (16 frames as a cfg pair of 8; the first
+    # with a residual), the train step's batch of 1, and the VAE decoder's
+    # alpha-folded conv2 at 128 channels (two 3-frame windows of 720x1280,
+    # then the 2-frame tail) with per-frame statistics
     def k5_case(bsz, f, n, c, cout, residual, per_frame, timed):
         x = randn(bsz, f, n, c)
         sc = torch.rand(c, generator=g, device=dev) * 0.2 + 0.9
@@ -357,19 +441,29 @@ def check_kernels(dev) -> dict[str, dict]:
                       + w.numel()) + 8 * st[0].numel() + 8 * sty[0].numel()
         return agree, ms, plain_ms, 2.0 * m * 3 * c * cout, nbytes, lib_ms
 
+    # edges: C and Cout not whole 128-column tiles, a 3-frame window with
+    # a pixel tail
     k5_case(1, 8, 3680, 640, 640, False, False, False)
     k5_case(1, 3, 3680, 256, 256, True, True, False)
     k5_case(2, 3, 5000, 512, 512, True, True, False)
-    agree, ms, plain_ms, flops, nbytes, lib_ms = k5_case(
-        2, 8, 14400, 320, 320, True, False, True)
+    # the main paths' shapes, each timed: the UNet's four levels (CFG
+    # pair), the train step's batch of 1, the VAE decoder's windows
+    k5 = k5_case(2, 8, 14400, 320, 320, True, False, True)
     record('fused_gn_silu_tconv3', 'cuda',
-           'star_tpu_torch/csrc/fused_tconv3.cu',
-           'star_tpu/ops/fused_temporal_conv.py:225', agree, ms, plain_ms,
-           flops, nbytes, lib_ms, [2, 8, 14400, 320])
-    agree, ms, plain_ms, flops, nbytes, lib_ms = k5_case(
-        2, 3, 921600, 128, 128, True, True, True)
-    results['fused_gn_silu_tconv3']['vae_128'] = sub_record(
-        [2, 3, 921600, 128], agree, ms, plain_ms, flops, nbytes, lib_ms)
+           'star_tpu_torch/csrc/fused_tconv3_sm90.cu',
+           'star_tpu/ops/fused_temporal_conv.py:225', k5[0], *k5[1:],
+           [2, 8, 14400, 320])
+    shapes = []
+    for shape, res, pf in (((2, 8, 3600, 640, 640), False, False),
+                           ((2, 8, 920, 1280, 1280), False, False),
+                           ((2, 8, 240, 1280, 1280), False, False),
+                           ((1, 8, 14400, 320, 320), True, False),
+                           ((2, 3, 921600, 128, 128), True, True),
+                           ((1, 2, 921600, 128, 128), True, True)):
+        k5 = k5_case(*shape, res, pf, True)
+        shapes.append(sub_record(list(shape[:4]), k5[0], *k5[1:],
+                                 residual=res, per_frame=pf))
+    results['fused_gn_silu_tconv3']['shapes'] = shapes
     torch.cuda.synchronize()
     check_vae_kernels(dev, g, randn, record, results)
     check_train_kernels(dev, randn, record, results)
@@ -443,19 +537,23 @@ def check_vae_kernels(dev, g, randn, record, results) -> None:
         return agree, ms, plain_ms, 2.0 * m * 9 * c * cout, nbytes, lib_ms
 
     k6 = k6_case(8, 720, 1280, 128, 128, True, True)     # encoder down_0
-    record('conv3x3', 'cuda', 'star_tpu_torch/csrc/conv3x3.cu',
+    record('conv3x3', 'cuda', 'star_tpu_torch/csrc/conv3x3_sm90.cu',
            'star_tpu/ops/conv3x3.py:278', k6[0], *k6[1:],
            [8, 720, 1280, 128, 128])
-    k6_case(8, 360, 640, 128, 256, False, False)          # encoder down_1
-    k6_case(6, 720, 1280, 256, 128, True, False)          # decoder up_3
-    k6_case(6, 90, 160, 512, 512, False, False)           # ragged H = 90
     k6b = k6_case(6, 360, 640, 256, 256, True, True)      # decoder up_2
     results['conv3x3']['k6b'] = sub_record(
         [6, 360, 640, 256, 256], k6b[0], *k6b[1:],
         replaces='star_tpu/ops/conv3x3.py:904')
+    shapes = []
+    for shape, res in (((8, 360, 640, 128, 256), False),  # encoder down_1
+                       ((6, 720, 1280, 256, 128), True),  # decoder up_3
+                       ((6, 90, 160, 512, 512), False)):  # ragged H = 90
+        k6 = k6_case(*shape, res, True)
+        shapes.append(sub_record(list(shape), k6[0], *k6[1:], residual=res))
+    results['conv3x3']['shapes'] = shapes
     results['conv3x3']['k6c'] = dict(
         replaces='star_tpu/ops/conv3x3.py:656',
-        computed_by='the same kernel (csrc/conv3x3.cu)')
+        computed_by='the same kernel (csrc/conv3x3_sm90.cu)')
     torch.cuda.synchronize()
 
     # K7: the three decoder upsamples, with statistics. The plain version
@@ -1244,7 +1342,9 @@ def run_pipeline(dev) -> dict:
     assert_launches('clip', launches, {
         'fused_ln': n * LN_PER_CFG_STEP['fused_ln'] + 2 * LN_PER_TEXT_ENCODE,
         'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln'],
-        'flash_d512': D512_PER_CLIP})
+        'flash_d512': D512_PER_CLIP,
+        'fused_gn_silu_tconv3': n * K5_PER_CFG_STEP + 2 * K5_PER_DECODE,
+        'conv3x3': K6_PER_ENCODE + 2 * K6_PER_DECODE})
     return dict(models=models, pipe=pipe, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), unet_calls=len(unet_calls),
                 peak_gb=peak_gb, out_mean=float(out.mean()),
@@ -1273,9 +1373,11 @@ def time_cfg_step(dev, models, profile: str | None) -> dict:
         res = dict(ms=ms, launches=per_step)
         log(f'CFG UNet+ControlNet step [8f, 90x160, cfg_pair, bf16]: '
             f'{ms:.1f} ms; launches per step {per_step}')
-        assert_launches('CFG step', per_step, LN_PER_CFG_STEP)
+        assert_launches('CFG step', per_step, {
+            **LN_PER_CFG_STEP, 'fused_gn_silu_tconv3': K5_PER_CFG_STEP})
         if profile:
-            res['profile'] = profile_step(step, profile)
+            res['profile'] = profile_step(step, profile, bounds={
+                'K5 fused GN+SiLU+tconv': bound_sum_ms('k5', unet_k5(2))})
     return res
 
 
@@ -1286,7 +1388,8 @@ KERNEL_FAMILIES = (
     ('K3 flash backward', ('flash_bwd',)),
     ('K4 frame attention', ('temporal_attention_kernel',)),
     ('K5 fused GN+SiLU+tconv', ('fused_tconv3',)),
-    ('K6/K7 conv tile', ('conv_tile_kernel',)),
+    ('K6 fused GN+SiLU+3x3 conv', ('conv3x3_sm90', 'conv_tile_kernel<9>')),
+    ('K7 fused upsample+conv', ('conv_tile_kernel',)),
     ('K8 interleave', ('interleave2x2',)),
     ('K9 qk-LN+RoPE', ('qk_ln_rope',)),
     ('K10 LayerNorm', ('star_ln_kernel',)),
@@ -1306,17 +1409,27 @@ def kernel_family(name: str) -> str:
     return 'other'
 
 
-def profile_step(step, path: str) -> dict:
+GEMM_OPS = ('aten::mm', 'aten::addmm', 'aten::bmm', 'aten::baddbmm')
+
+
+def profile_step(step, path: str, gemm_sources: bool = False,
+                 bounds: dict | None = None) -> dict:
     """Device time by kernel over one step (torch.profiler), summed by
     kernel family, the busy share, and the top kernels; the full table is
-    written to `path`."""
+    written to `path`. With `gemm_sources` the GEMM ops (mm, addmm, bmm)
+    are also grouped by input shapes and Python stack, with the device
+    time of the kernels under each, into `path` with _gemms before its
+    extension: the backward's GEMMs have no Python stack, and their shapes
+    name them. `bounds` maps a family to the bound of its launches in the
+    step (ms), logged beside the family's time."""
     import os
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=gemm_sources,
+                 with_stack=gemm_sources) as prof:
         step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1346,12 +1459,50 @@ def profile_step(step, path: str) -> dict:
             fh.write(f'{ms:10.3f} ms {n:6d}  {key}\n')
     top = [dict(ms=round(ms, 3), count=n, kernel=key[:80])
            for ms, n, key in rows[:12]]
+    for fam, b in (bounds or {}).items():
+        ms = families.get(fam, 0.0)
+        log(f'{fam}: {ms:.1f} ms against a bound of {b:.1f} ms for its '
+            f'launches (lost {ms - b:.1f} ms)')
+    gemms = None
+    if gemm_sources:
+        root, ext = os.path.splitext(path)
+        gemms = gemm_table(prof, f'{root}_gemms{ext or ".txt"}')
     log(f'profiled step: wall {wall_ms:.1f} ms (profiler on), device busy '
         f'{busy_ms:.1f} ms; top: '
         + '; '.join(f"{r['kernel'][:40]} {r['ms']} ms x{r['count']}"
                     for r in top[:6]))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=families,
-                top=top)
+                top=top, bounds=bounds, gemms=gemms)
+
+
+def gemm_table(prof, path: str) -> list:
+    """The GEMM ops of a profile by (op, input shapes, innermost frames of
+    the port on the Python stack): count and device ms, written to `path`;
+    returns the twelve largest."""
+    entries = []
+    for ev in prof.key_averages(group_by_input_shape=True,
+                                group_by_stack_n=16):
+        if ev.key not in GEMM_OPS:
+            continue
+        dev_us = getattr(ev, 'device_time_total', None)
+        if dev_us is None:
+            dev_us = getattr(ev, 'cuda_time_total', 0.0)
+        frames = [f for f in (ev.stack or []) if 'star_tpu_torch' in f]
+        entries.append((dev_us / 1e3, ev.count, ev.key,
+                        str(ev.input_shapes), ' < '.join(frames[:3])))
+    entries.sort(reverse=True)
+    with open(path, 'w') as fh:
+        fh.write(f'GEMM ops: {sum(e[0] for e in entries):.1f} device ms\n')
+        for ms, n, key, shapes, where in entries:
+            fh.write(f'{ms:10.3f} ms {n:6d}  {key} {shapes}  '
+                     f'{where or "(no Python stack: autograd)"}\n')
+    top = [dict(ms=round(ms, 3), count=n, op=key, shapes=shapes[:120],
+                where=where[:160]) for ms, n, key, shapes, where in
+           entries[:12]]
+    log('GEMM ops of the step by shape and source: '
+        + '; '.join(f"{t['op']} {t['shapes'][:60]} {t['ms']} ms x{t['count']}"
+                    f" [{t['where'][:60] or 'autograd'}]" for t in top[:8]))
+    return top
 
 
 # --------------------------------------------------------------------------
@@ -1482,8 +1633,12 @@ def run_train(dev, models, profile: str | None = None) -> dict:
             missing = [k for k in TRAIN_PATH_KERNELS if counts[k] <= 0]
             assert not missing, f'kernels not launched in the train step: ' \
                 f'{missing}'
-            assert_launches(f'train step {i}', counts,
-                            {**LN_PER_TRAIN_STEP, **ATTN_PER_TRAIN_STEP})
+            assert_launches(f'train step {i}', counts, {
+                **LN_PER_TRAIN_STEP, **ATTN_PER_TRAIN_STEP,
+                # forward and remat recompute, and the decode of pred-x0
+                'fused_gn_silu_tconv3': 2 * K5_PER_CFG_STEP
+                + 2 * K5_PER_DECODE,
+                'conv3x3': 2 * K6_PER_DECODE})
             if i:
                 times.append(ms)
                 per_step.append(counts)
@@ -1513,8 +1668,11 @@ def run_train(dev, models, profile: str | None = None) -> dict:
         def one_step():
             nonlocal state
             state, _ = step(state, batch, t=t, noise=noise)
-        res['profile'] = profile_step(one_step,
-                                      f'{root}_train{ext or ".txt"}')
+        res['profile'] = profile_step(
+            one_step, f'{root}_train{ext or ".txt"}', gemm_sources=True,
+            bounds={'K5 fused GN+SiLU+tconv': bound_sum_ms(
+                'k5', unet_k5(1), unet_k5(1), *DECODE_K5),
+                'K6 fused GN+SiLU+3x3 conv': bound_sum_ms('k6', *DECODE_K6)})
     return res
 
 

@@ -1,7 +1,7 @@
 """Time design variants of the port's hand-written kernels on one CUDA card.
 
-    python3 chip_variants.py            # K1, K10/K11, K3 and K2 d=512
-    python3 chip_variants.py k3 d512    # or only some families
+    python3 chip_variants.py            # K1, K10/K11, K3, K2 d=512, K5, K6
+    python3 chip_variants.py k5 k6      # or only some families
 
 Each variant is a committed source (star_tpu_torch/csrc/) with a few lines
 replaced, every replacement checked to match: a deeper or shallower ring,
@@ -12,7 +12,10 @@ with the unmodified source, twice (in one order, then the reverse), in one
 process: the numbers compare designs within one call. Variants marked
 `timing only` change what the kernel computes and are not checked; the
 others are held to the plain version with chip_smoke.py's tolerance.
-Prints one line per (variant, shape) and, last, one JSON object.
+Some K5 variants change no source but an argument that the launch plan
+gives the entry point (the column width NW, the weight ring's depth): they
+run the unmodified build. Prints one line per (variant, shape) and, last,
+one JSON object.
 """
 
 from __future__ import annotations
@@ -168,6 +171,85 @@ def ln_threads(n: int) -> list[tuple[str, str]]:
 LN_VARIANTS = {
     'threads256': (LN_SRC, ln_threads(256), True),
     'threads512': (LN_SRC, ln_threads(512), True),
+}
+
+
+K5_SRC = 'fused_tconv3_sm90.cu'
+SILU = '  return __fdividef(t, 1.f + __expf(-t));'
+K5_STATS = '    if (p.want_stats && 2 * tid < NW && cg0 + 2 * tid < p.Cout) {'
+K5_PRODUCTS = ('        for (int kk = 0; kk < 4; ++kk) {\n'
+               '          const int sc = (kc | tap | kk) != 0;\n'
+               '          wgmma_ss<NW')
+K5_WLOAD = (
+    '            mbar_wait(&bars.w_empty[ws], ((i / W) & 1) ^ 1);\n'
+    '            mbar_expect_tx(&bars.w_full[ws], WST_BYTES);')
+K5_EPILOGUE = ('    if (p.has_res) mbar_wait(&bars.res_full[c], n & 1);\n'
+               '#pragma unroll\n'
+               '    for (int mb = 0; mb < 2; ++mb)')
+# SLABS = 2 deadlocks: the consumers wait for slab k+1 before releasing
+# slab k-1, which slab k+1 would reuse
+K5_VARIANTS = {
+    'no_silu (timing only)': (K5_SRC, [(SILU, '  return t;')], False),
+    'no_transform (timing only)': (K5_SRC, [(
+        '      const int r = r0 + 32 * u;\n      if (r >= srows) break;',
+        '      const int r = r0 + 32 * u;\n      if (r >= 0) break;')],
+        False),
+    'no_stats (timing only)': (K5_SRC, [(K5_STATS, K5_STATS.replace(
+        'p.want_stats', 'false'))], False),
+    'no_epilogue (timing only)': (K5_SRC, [
+        (K5_STATS, K5_STATS.replace('p.want_stats', 'false')),
+        (K5_EPILOGUE, K5_EPILOGUE.replace('mb < 2; ++mb)', 'mb < 0; ++mb)'))],
+        False),
+    'no_products (timing only)': (K5_SRC, [(K5_PRODUCTS, K5_PRODUCTS.replace(
+        'kk < 4', 'kk < 0'))], False),
+    # the weight ring keeps its first W stages: no weight traffic from L2
+    'weights_once (timing only)': (K5_SRC, [(K5_WLOAD, K5_WLOAD.replace(
+        '            mbar_expect_tx(', '            if (i >= W) {\n'
+        '              mbar_arrive(&bars.w_full[ws]);\n'
+        '              continue;\n            }\n'
+        '            mbar_expect_tx('))], False),
+}
+# K5 variants of the plan, not the source, on the unmodified build: name
+# -> plan overrides (a width the plan would not pick at that shape)
+K5_PLAN_VARIANTS = {'nw128': dict(nw=128), 'nw160': dict(nw=160),
+                    'wstages2': dict(wstages=2)}
+K6_SRC = 'conv3x3_sm90.cu'
+K6_WLOAD = (
+    '            mbar_wait(&bars.w_empty[ws], ((i / WSTAGES) & 1) ^ 1);\n'
+    '            mbar_expect_tx(&bars.w_full[ws], WST_BYTES);')
+K6_HLOAD = (
+    '          mbar_wait(&bars.act_empty[s], ((k / ASTAGES) & 1) ^ 1);\n'
+    '          mbar_expect_tx(&bars.act_full[s], 8 * HPIX * 16);')
+K6_VARIANTS = {
+    'wstages2': (K6_SRC, [('constexpr int ASTAGES = 2, WSTAGES = 4;',
+                           'constexpr int ASTAGES = 2, WSTAGES = 2;')], True),
+    'astages3_wstages2': (K6_SRC, [(
+        'constexpr int ASTAGES = 2, WSTAGES = 4;',
+        'constexpr int ASTAGES = 3, WSTAGES = 2;')], True),
+    'no_silu (timing only)': (K6_SRC, [(
+        '          e[j] = __float2bfloat16(__fdividef(x, 1.f + __expf(-x)));',
+        '          e[j] = __float2bfloat16(x);')], False),
+    'no_transform (timing only)': (K6_SRC, [(
+        '      if (px >= HPIX) break;',
+        '      if (px >= 0) break;')], False),
+    'no_stats (timing only)': (K6_SRC, [(
+        '    if (p.want_stats) {\n      // thread: columns',
+        '    if (false) {\n      // thread: columns')], False),
+    'no_products (timing only)': (K6_SRC, [(
+        '        for (int kk = 0; kk < 4; ++kk) {\n          const int sc',
+        '        for (int kk = 0; kk < 0; ++kk) {\n          const int sc')],
+        False),
+    'weights_once (timing only)': (K6_SRC, [(K6_WLOAD, K6_WLOAD.replace(
+        '            mbar_expect_tx(', '            if (i >= WSTAGES) {\n'
+        '              mbar_arrive(&bars.w_full[ws]);\n'
+        '              continue;\n            }\n'
+        '            mbar_expect_tx('))], False),
+    # the halo ring keeps its first stages: no activation traffic
+    'halos_once (timing only)': (K6_SRC, [(K6_HLOAD, K6_HLOAD.replace(
+        '          mbar_expect_tx(', '          if (k >= ASTAGES) {\n'
+        '            mbar_arrive(&bars.act_full[s]);\n'
+        '            continue;\n          }\n'
+        '          mbar_expect_tx('))], False),
 }
 
 
@@ -462,12 +544,156 @@ def d512(dev, g) -> list[dict]:
     return rows
 
 
+def _gn_inputs(g, dev, c, cout, nb, taps_shape):
+    import math
+    import torch
+    a = torch.rand(nb, c, generator=g, device=dev) * 0.5 + 0.75
+    b = torch.randn(nb, c, generator=g, device=dev) * 0.3
+    w = (torch.randn(*taps_shape, generator=g, device=dev)
+         / math.sqrt(taps_shape[0] * c)).bfloat16()
+    bias = torch.randn(cout, generator=g, device=dev) * 0.1
+    return a, b, w, bias
+
+
+def k5(dev, g) -> list[dict]:
+    """K5 at the UNet's levels and the VAE's 3-frame windows: the source
+    variants, and the plan variants on the unmodified build."""
+    import torch
+    from star_tpu_torch.ops import _build, fused_temporal_conv as ftc
+    libs = build(K5_VARIANTS)
+    checked = {'base'} | {k for k, v in K5_VARIANTS.items() if v[2]}
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+
+    def plan_of(shape, over):
+        plan = ftc.tconv3_launch_plan(*shape, nw=over.get('nw'))
+        if 'wstages' in over:
+            plan = dict(plan, wstages=over['wstages'], smem=plan['smem']
+                        + (over['wstages'] - plan['wstages']) * 256
+                        * plan['nw'])
+        return plan
+
+    def call(lib, x, a, b, wt, bias, r, pf, plan):
+        bsz, f, n, c = x.shape
+        cout = wt.shape[1]
+        out = torch.empty(bsz, f, n, cout, device=dev, dtype=torch.bfloat16)
+        nrow = bsz * f if pf else bsz
+        s1 = torch.zeros(nrow, cout, device=dev)
+        s2 = torch.zeros(nrow, cout, device=dev)
+        err = lib.star_fused_gn_silu_tconv3(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), wt.data_ptr(),
+            bias.data_ptr(), None if r is None else r.data_ptr(),
+            out.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz, f, n, c, cout,
+            1, int(pf), plan['p'], plan['ft'], plan['nw'],
+            plan['slab_bytes'], plan['wstages'], plan['grid'][0],
+            plan['smem'], _build.stream_ptr(dev))
+        _build.check(err, f'star_fused_gn_silu_tconv3 {list(x.shape)} '
+                     f'Cout {cout} {plan}')
+        return out, (s1, s2)
+
+    rows = []
+    for shape, res, pf in (((2, 8, 14400, 320, 320), True, False),
+                           ((2, 8, 3600, 640, 640), False, False),
+                           ((2, 8, 920, 1280, 1280), False, False),
+                           ((2, 3, 921600, 128, 128), True, True)):
+        bsz, f, n, c, cout = shape
+        x = randn(bsz, f, n, c)
+        a, b, w3, bias = _gn_inputs(g, dev, c, cout, bsz, (3, c, cout))
+        wt = w3.transpose(1, 2).contiguous()
+        r = randn(bsz, f, n, cout) if res else None
+        runs = {name: (lib, {}) for name, lib in libs.items()}
+        base_plan = ftc.tconv3_launch_plan(*shape)
+        for name, over in K5_PLAN_VARIANTS.items():
+            try:
+                plan = plan_of(shape, over)
+            except ValueError:               # does not fit at this shape
+                continue
+            if plan['nw'] != base_plan['nw'] or 'wstages' in over:
+                runs[name] = (libs['base'], over)
+        ref, sref = ftc.tconv3_plain(x, a, b, w3, bias, r, True, pf)
+        for name, (lib, over) in runs.items():
+            if name in checked or name in K5_PLAN_VARIANTS:
+                out, st = call(lib, x, a, b, wt, bias, r, pf,
+                               plan_of(shape, over))
+                cs.agrees(f'K5 {name} {list(shape)}', [(out, ref)])
+                cs.stats_agree(f'K5 {name} {list(shape)}', st, sref)
+                del out, st
+        del ref, sref
+        ms = {name: [] for name in runs}
+        for order in (list(runs), list(reversed(list(runs)))):
+            for name in order:
+                lib, over = runs[name]
+                plan = plan_of(shape, over)
+                ms[name].append(cs.cuda_ms(
+                    lambda: call(lib, x, a, b, wt, bias, r, pf, plan),
+                    reps=10, warmup=2))
+        flops = 2.0 * bsz * f * n * 3 * c * cout
+        for name, t in ms.items():
+            rows.append(dict(kernel='K5', variant=name, shape=list(shape),
+                             ms=t, tflops=flops / min(t) / 1e9))
+            cs.log(f'K5 {name:28s} {list(shape)}: '
+                   + ' '.join(f'{m:.3f}' for m in t)
+                   + f' ms, {rows[-1]["tflops"]:.0f} TFLOP/s')
+        del x, r
+    return rows
+
+
+def k6(dev, g) -> list[dict]:
+    """K6 at the VAE's widest level and at its 256-channel level."""
+    import torch
+    from star_tpu_torch.ops import _build, conv3x3 as c3
+    libs = build(K6_VARIANTS)
+    checked = {'base'} | {k for k, v in K6_VARIANTS.items() if v[2]}
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+
+    def call(lib, x, a, b, wk, bias, r):
+        n, h, w, c = x.shape
+        cout = wk.shape[0]
+        plan = c3.conv3x3_launch_plan(n, h, w, c, cout)
+        out = torch.empty(n, h, w, cout, device=dev, dtype=torch.bfloat16)
+        s1 = torch.zeros(n, cout, device=dev)
+        s2 = torch.zeros(n, cout, device=dev)
+        err = lib.star_conv3x3(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), wk.data_ptr(),
+            bias.data_ptr(), None if r is None else r.data_ptr(),
+            out.data_ptr(), s1.data_ptr(), s2.data_ptr(), n, h, w, c, cout,
+            1, plan['grid'][0], _build.stream_ptr(dev))
+        _build.check(err, 'star_conv3x3')
+        return out, (s1, s2)
+
+    rows = []
+    for shape, res in (((8, 720, 1280, 128, 128), True),
+                       ((6, 360, 640, 256, 256), True)):
+        n, h, w, c, cout = shape
+        x = randn(n, h, w, c)
+        a, b, wt, bias = _gn_inputs(g, dev, c, cout, n, (cout, c, 3, 3))
+        wk = wt.permute(0, 2, 3, 1).contiguous()
+        r = randn(n, h, w, cout) if res else None
+        ref, sref = c3.conv3x3_plain(x, a, b, wt, bias, r, True)
+        for name in sorted(checked):
+            out, st = call(libs[name], x, a, b, wk, bias, r)
+            cs.agrees(f'K6 {name} {list(shape)}', [(out, ref)])
+            cs.stats_agree(f'K6 {name} {list(shape)}', st, sref)
+            del out, st
+        del ref, sref
+        ms = in_turn(libs, lambda lib: call(lib, x, a, b, wk, bias, r),
+                     reps=5)
+        flops = 2.0 * n * h * w * 9 * c * cout
+        for name, t in ms.items():
+            rows.append(dict(kernel='K6', variant=name, shape=list(shape),
+                             ms=t, tflops=flops / min(t) / 1e9))
+            cs.log(f'K6 {name:28s} {list(shape)}: '
+                   + ' '.join(f'{m:.3f}' for m in t)
+                   + f' ms, {rows[-1]["tflops"]:.0f} TFLOP/s')
+        del x, r
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print('chip_variants: no CUDA device', file=sys.stderr)
         return 2
-    which = sys.argv[1:] or ['k1', 'ln', 'k3', 'd512']
+    which = sys.argv[1:] or ['k1', 'ln', 'k3', 'd512', 'k5', 'k6']
     card = cs.card_line()
     cs.log(f'card: {card}')
     dev = torch.device('cuda', 0)
@@ -481,6 +707,10 @@ def main() -> int:
         rows += k3(dev, g)
     if 'd512' in which:
         rows += d512(dev, g)
+    if 'k5' in which:
+        rows += k5(dev, g)
+    if 'k6' in which:
+        rows += k6(dev, g)
     clocks = subprocess.run(
         ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
          '--format=csv,noheader'], capture_output=True, text=True).stdout

@@ -1,21 +1,19 @@
-// Implicit-GEMM 3x3-type convolution over a staged halo patch, shared by
-// K6 (csrc/conv3x3.cu: GN apply + SiLU + 3x3 SAME conv, 9 taps) and K7
+// Implicit-GEMM convolution over a staged halo patch for K7
 // (csrc/upsample_conv.cu: one phase of nearest-2x + 3x3 conv, 4 taps).
 //
 // A block owns an 8x16 patch of one image (M = 128 pixels) and 128 output
 // channels (N). The reduction runs over K = taps x C in chunks of 32
 // channels: for each chunk the (8+2) x (16+2) halo patch of x is copied to
 // shared memory with cp.async (positions outside the image are not read),
-// transformed once into the bf16 operand tile (K6: silu(x*a + b) in fp32,
-// rounded once; K7: a copy) with ZEROS at positions outside the image —
-// SAME padding applies after the activation, so a pad tap adds 0, not
-// silu(b). Each tap is then a shifted view of that tile: the A fragments
-// of tap (ty, tx) are ldmatrix loads at halo row (i + ty, j + tx), so x is
-// read and activated once per chunk and output-channel tile, not once per
-// tap. The weight slab of each (chunk, tap) — [128 Cout][32 C], K
-// contiguous — streams through a three-stage cp.async ring; the halo of
-// the next chunk is copied during the first tap of the current one and
-// transformed after its last, into the other of two halo buffers.
+// copied into the bf16 operand tile with ZEROS at positions outside the
+// image (the SAME padding of the upsampled grid). Each tap is then a
+// shifted view of that tile: the A fragments of tap (ty, tx) are ldmatrix
+// loads at halo row (i + ty, j + tx), so x is read once per chunk and
+// output-channel tile, not once per tap. The weight slab of each (chunk,
+// tap) — [128 Cout][32 C], K contiguous — streams through a three-stage
+// cp.async ring; the halo of the next chunk is copied during the first
+// tap of the current one and moved into place after its last, into the
+// other of two halo buffers.
 // 8 warps of 32x64 run mma.sync m16n8k16 (bf16 in, fp32 accumulate), two
 // blocks per SM. Neither a 16x16 patch with 16 warps (half the weight
 // traffic from L2) nor 64x64 warp tiles (two thirds of the ldmatrix bytes
@@ -23,7 +21,7 @@
 // of the three stays.
 //
 // Epilogue: acc + fp32 bias, rounded once to bf16, staged in shared memory;
-// then one 16-byte vector per thread: + bf16 residual (K6), store, and the
+// then one 16-byte vector per thread: store, and the
 // fp32 (sum, sumsq) of the stored values per output channel, reduced over
 // the block (shuffles, then shared atomics) and added with one atomicAdd
 // per (block, channel) into the caller's zeroed [N, Cout] buffers. A tile
@@ -66,14 +64,13 @@ constexpr int SMEM_BYTES = MAIN_BYTES > OUT_BYTES ? MAIN_BYTES : OUT_BYTES;
 static_assert(TW == 16 && WARPS_M * MT == TH, "patch / warp layout");
 static_assert(THREADS % 4 == 0 && BN * (BK / 8) % THREADS == 0, "loaders");
 
+constexpr int NTAPS = 4;                 // a 2x2 window a phase
+
 struct Args {
   const bf16* x;      // [N, H, W, C]
-  const float* ga;    // [N, C] GN scale (K6) or null (K7)
-  const float* gb;    // [N, C] GN shift (K6) or null
-  const bf16* w;      // [P, Cout, taps, C] with P = 1 (K6) or 4 phases (K7)
+  const bf16* w;      // [4 phases, Cout, 4 taps, C]
   const float* bias;  // [Cout]
-  const bf16* res;    // [N, H, W, Cout] or null (K6 only)
-  bf16* out;          // K6 [N, H, W, Cout]; K7 [N, 2H, 2W, Cout]
+  bf16* out;          // [N, 2H, 2W, Cout]
   float* ssum;        // [N, Cout], zeroed by the caller
   float* ssq;
   int N, H, W, C, Cout, want_stats;
@@ -116,13 +113,9 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// NTAPS = 9: K6, tap t reads halo offset (t / 3, t % 3), GN + SiLU
-// prologue, optional residual, output on the same grid.
-// NTAPS = 4: K7, phase (r, s) = blockIdx-derived, tap t = (p, q) reads halo
-// offset (p + r, q + s), no prologue, output at (2i + r, 2j + s).
-template <int NTAPS>
+// phase (r, s) = blockIdx-derived, tap t = (p, q) reads halo offset
+// (p + r, q + s), output at (2i + r, 2j + s)
 __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
-  constexpr bool kUp = NTAPS == 4;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sHalo = reinterpret_cast<bf16*>(smem);  // [2][HPIX][AP]
   bf16* sRaw = sHalo + 2 * HALO_ELEMS;           // [HPIX][BK]
@@ -134,11 +127,8 @@ __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
   int bid = blockIdx.x;
   const int ct = bid % nct;
   bid /= nct;
-  int phase = 0;
-  if (kUp) {
-    phase = bid & 3;
-    bid >>= 2;
-  }
+  const int phase = bid & 3;
+  bid >>= 2;
   const int tw = bid % tilesW;
   bid /= tilesW;
   const int th = bid % tilesH;
@@ -183,21 +173,9 @@ __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
       }
     }
   };
-  // raw chunk -> operand tile: each thread converts the vectors it copied
+  // raw chunk -> operand tile: each thread copies the vectors it loaded
   // (its own cp.async writes are visible to it after the wait)
-  auto transform = [&](int cc, int buf) {
-    float av[8], bv[8];
-    if (!kUp) {
-      const float4* ap =
-          reinterpret_cast<const float4*>(p.ga + (long long)n * C + cc * BK + hcv);
-      const float4* bp =
-          reinterpret_cast<const float4*>(p.gb + (long long)n * C + cc * BK + hcv);
-      const float4 a0 = ap[0], a1 = ap[1], b0 = bp[0], b1 = bp[1];
-      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-    }
+  auto transform = [&](int buf) {
 #pragma unroll
     for (int u = 0; u < HV_PER_THREAD; ++u) {
       const int v = tid + u * THREADS;
@@ -205,17 +183,8 @@ __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
       const int pos = v >> 2;
       int ih, iw;
       uint4 packed = make_uint4(0u, 0u, 0u, 0u);  // SAME zero pad
-      if (halo_in(u, ih, iw)) {
+      if (halo_in(u, ih, iw))
         packed = *reinterpret_cast<const uint4*>(sRaw + pos * BK + hcv);
-        if (!kUp) {
-          bf16* pv = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float t = __bfloat162float(pv[e]) * av[e] + bv[e];
-            pv[e] = __float2bfloat16(__fdividef(t, 1.f + __expf(-t)));
-          }
-        }
-      }
       *reinterpret_cast<uint4*>(sHalo + buf * HALO_ELEMS + pos * AP + hcv) =
           packed;
     }
@@ -240,7 +209,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
   if (KT > 1) issue_w(1, 1);
   cp_commit();
   cp_wait<1>();
-  transform(0, 0);
+  transform(0);
 
   for (int kt = 0; kt < KT; ++kt) {
     // groups 0..kt have landed; after the barrier every thread is done
@@ -252,8 +221,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
     if (t == 0 && cc + 1 < nchunk) issue_raw(cc + 1);
     cp_commit();
 
-    const int ty = kUp ? (t >> 1) + pr : t / 3;
-    const int tx = kUp ? (t & 1) + ps : t % 3;
+    const int ty = (t >> 1) + pr, tx = (t & 1) + ps;
     const bf16* cA = sHalo + (cc & 1) * HALO_ELEMS;
     const bf16* cB = sW + (kt % WSTAGES) * W_ELEMS;
 #pragma unroll
@@ -278,7 +246,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
         }
       }
     }
-    if (t == NTAPS - 1 && cc + 1 < nchunk) transform(cc + 1, (cc + 1) & 1);
+    if (t == NTAPS - 1 && cc + 1 < nchunk) transform((cc + 1) & 1);
   }
   cp_wait<0>();
   __syncthreads();
@@ -308,24 +276,16 @@ __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
   float s[8], s2[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) s[e] = s2[e] = 0.f;
-  const int OH = kUp ? 2 * H : H, OW = kUp ? 2 * W : W;
+  const int OH = 2 * H, OW = 2 * W;
 #pragma unroll 2
   for (int u = 0; u < BM * 16 / THREADS; ++u) {
     const int m = (tid >> 4) + u * (THREADS / 16);
     const int ih = h0 + (m >> 4), iw = w0 + (m & 15);
     if (ih >= H || iw >= W) continue;
-    const int oh = kUp ? 2 * ih + pr : ih, ow = kUp ? 2 * iw + ps : iw;
+    const int oh = 2 * ih + pr, ow = 2 * iw + ps;
     const long long o = (((long long)n * OH + oh) * OW + ow) * Cout + n0 + cv;
     uint4 vec = *reinterpret_cast<const uint4*>(sO + m * OP + cv);
-    bf16* vv = reinterpret_cast<bf16*>(&vec);
-    if (!kUp && p.res != nullptr) {
-      const uint4 rv = *reinterpret_cast<const uint4*>(p.res + o);
-      const bf16* rr = reinterpret_cast<const bf16*>(&rv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        vv[e] = __float2bfloat16(__bfloat162float(vv[e]) +
-                                 __bfloat162float(rr[e]));
-    }
+    const bf16* vv = reinterpret_cast<const bf16*>(&vec);
     *reinterpret_cast<uint4*>(p.out + o) = vec;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -355,22 +315,21 @@ __global__ void __launch_bounds__(THREADS, 2) conv_tile_kernel(Args p) {
   }
 }
 
-// One launch over every (image, patch[, phase], Cout tile); Cout tiles
-// vary fastest so the blocks that share a halo patch run together.
-template <int NTAPS>
+// One launch over every (image, patch, phase, Cout tile); Cout tiles vary
+// fastest so the blocks that share a halo patch run together.
 inline int launch(const Args& a, cudaStream_t stream) {
   if (a.C % BK != 0 || a.Cout % BN != 0 || a.N <= 0 || a.H <= 0 ||
       a.W <= 0)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)a.N * ((a.H + TH - 1) / TH) *
-                           ((a.W + TW - 1) / TW) * (NTAPS == 4 ? 4 : 1) *
+                           ((a.W + TW - 1) / TW) * 4 *
                            (a.Cout / BN);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_tile_kernel<NTAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  conv_tile_kernel<NTAPS><<<(unsigned)blocks, THREADS, SMEM_BYTES, stream>>>(a);
+  conv_tile_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

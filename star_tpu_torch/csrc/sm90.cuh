@@ -1,9 +1,10 @@
-// Hopper (sm_90a) primitives for the port's warp-specialised attention
-// kernels (K1/K2 in flash_fwd_sm90.cu and flash_fwd_d512_sm90.cu, K3 in
-// flash_bwd_sm90.cu), in raw PTX: mbarriers (also across a cluster), TMA
-// tensor copies (3-D, 128-byte swizzle, multicast) and bulk copies, their
-// tensor maps, wgmma descriptors, fences and products, named barriers and
-// setmaxnreg.
+// Hopper (sm_90a) primitives for the port's warp-specialised kernels (K1/K2
+// in flash_fwd_sm90.cu and flash_fwd_d512_sm90.cu, K3 in flash_bwd_sm90.cu,
+// K5 in fused_tconv3_sm90.cu, K6 in conv3x3_sm90.cu), in raw PTX:
+// mbarriers (also across a cluster), TMA tensor copies (3-D and 4-D,
+// 32/64/128-byte swizzle or none, multicast) and bulk copies, their tensor
+// maps, wgmma descriptors (swizzled and plain), fences and products, named
+// barriers and setmaxnreg.
 //
 // The tensor map is encoded on the host with cuTensorMapEncodeTiled, found
 // through the CUDA runtime's entry-point query, so the library links no
@@ -104,6 +105,20 @@ __device__ __forceinline__ void tma_load_3d_multicast(void* dst,
       : "memory");
 }
 
+// box of a 4-D tensor map at (c0, c1, c2, c3) -> shared memory; completes
+// `bytes` on `bar`. Coordinates may be negative or past the end: elements
+// outside the tensor read as zero.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) of global
 // memory -> shared memory; completes `bytes` on `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -153,8 +168,21 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// shared memory -> the box of a 4-D tensor map at (c0, c1, c2, c3);
+// elements outside the tensor are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 // orders this thread's plain shared-memory writes before later async-proxy
-// reads (a TMA store)
+// reads (a TMA store, or wgmma reading its operands)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -226,6 +254,26 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
 }
 
+// Shared-memory matrix descriptor without swizzle, K-major: core matrices
+// of 8 rows x 16 bytes, each 128 contiguous bytes (row r at 16 r), `lbo`
+// bytes between the two core matrices of a 16-deep k-step, `sbo` bytes
+// between core matrices 8 rows apart. The start needs only 16-byte
+// alignment, so a view shifted by one row is a descriptor 16 bytes on.
+__device__ __forceinline__ uint64_t desc_plain(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// the byte offset `a` of a row-major tile (rows of 32, 64 or 128 bytes,
+// the base aligned to 256, 512 or 1024) under the TMA swizzle of its row
+// width: the 16-byte chunk index XOR the row's phase, `rowbytes` / 16 - 1
+// masking it
+__device__ __forceinline__ uint32_t swizzle(uint32_t a, uint32_t rowbytes) {
+  return a ^ (((a >> 7) & (rowbytes / 16 - 1)) << 4);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -260,7 +308,8 @@ __device__ __forceinline__ void fence_reg(uint32_t& r) {
   SM90_F64, SM90_F8(64), SM90_F8(72), SM90_F8(80), SM90_F8(88),       \
       SM90_F8(96), SM90_F8(104), SM90_F8(112), SM90_F8(120)
 
-// d[64xN] (+)= A[64x16] B[16xN], N in {32, 64, 128, 256}: A and B bf16 in
+// d[64xN] (+)= A[64x16] B[16xN], N in {16, 32, 64, 128, 160, 256}: A
+// and B bf16 in
 // shared memory, TA / TB their transpose bits (0: K-major, K contiguous;
 // 1: MN-major, M or N contiguous); fp32 accumulate; scale_d = 0
 // overwrites d. Accumulator layout: warp w of the group holds rows 16w + g
@@ -317,6 +366,27 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
         "%127}, "
         "%128, %129, p, 1, 1, %131, %132;\n}\n"
         : SM90_F128
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, %12;\n}\n"
+        : SM90_F8(0)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 160) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+        "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+        "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, "
+        "%71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "%80, %81, p, 1, 1, %83, %84;\n}\n"
+        : SM90_F64, SM90_F8(64), SM90_F8(72)
         : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 }
@@ -420,6 +490,36 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// A bf16 tensor of `rank` (<= 5) dims (dims[0] contiguous; strides[i] the
+// byte stride of dims[i + 1]) read or written in boxes of `box`, with the
+// `swizzle`-byte swizzle (32, 64 or 128: box[0] * 2 bytes) or none (0);
+// elements outside the tensor read as zero and are not written. Returns
+// false where cuTensorMapEncodeTiled refuses it.
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box, int swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr || rank < 1 || rank > 5) return false;
+  const CUtensorMapSwizzle sw =
+      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    unit[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(base), d, s, b, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A bf16 tensor of dims {d0, d1, d2} (d0 contiguous; s1, s2 the byte
 // strides of d1 and d2) read in boxes of {64, box1, 1}: 128-byte rows under
 // the 128-byte swizzle, elements outside the tensor read as zero. Returns
@@ -427,16 +527,10 @@ inline EncodeTiledFn encode_tiled_fn() {
 inline bool encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
                            uint64_t d1, uint64_t d2, uint64_t s1, uint64_t s2,
                            uint32_t box1) {
-  EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {64, box1, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const uint64_t dims[3] = {d0, d1, d2};
+  const uint64_t strides[2] = {s1, s2};
+  const uint32_t box[3] = {64, box1, 1};
+  return encode_bf16(map, base, 3, dims, strides, box, 128);
 }
 
 }  // namespace sm90

@@ -34,8 +34,7 @@ extern "C" int star_upsample_conv2x(const void* x, const void* w,
                                     void* ssq, int N, int H, int W, int C,
                                     int Cout, int want_stats, void* stream) {
   using namespace conv_tile;
-  Args args{(const bf16*)x, nullptr, nullptr, (const bf16*)w,
-            (const float*)bias, nullptr, (bf16*)out, (float*)ssum,
-            (float*)ssq, N, H, W, C, Cout, want_stats};
-  return launch<4>(args, (cudaStream_t)stream);
+  Args args{(const bf16*)x, (const bf16*)w, (const float*)bias, (bf16*)out,
+            (float*)ssum, (float*)ssq, N, H, W, C, Cout, want_stats};
+  return launch(args, (cudaStream_t)stream);
 }

@@ -14,6 +14,7 @@ Each C entry point launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -50,13 +51,14 @@ _SIGNATURES = {
                            L, I, Fl, P],
     # q, k, v, o, B, F, N, H, scale, stream
     'star_temporal_attention': [P, P, P, P, I, I, I, I, Fl, P],
-    # x, a, b, w, bias, residual, out, sum, sumsq, B, F, N, C, Cout,
-    # want_stats, per_frame, stream
+    # x, a, b, w [3, Cout, C], bias, residual, out, sum, sumsq, B, F, N, C,
+    # Cout, want_stats, per_frame, P, FT, NW, slab bytes, weight stages,
+    # grid, smem, stream
     'star_fused_gn_silu_tconv3': [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                  I, I, P],
+                                  I, I, I, I, I, I, I, I, I, P],
     # x, a, b, w, bias, residual, out, sum, sumsq, N, H, W, C, Cout,
-    # want_stats, stream
-    'star_conv3x3': [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # want_stats, grid, stream
+    'star_conv3x3': [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # x, w, bias, out, sum, sumsq, N, H, W, C, Cout, want_stats, stream
     'star_upsample_conv2x': [P, P, P, P, P, P, I, I, I, I, I, I, P],
     # p00, p01, p10, p11, out, sum, sumsq, N, H, W, C, want_stats, stream
@@ -151,6 +153,22 @@ def lib():
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: the persistent kernels'
+    grid (a CPU-looking device in the tests gets the H100's 132)."""
+    import torch
+    if getattr(device, 'type', None) != 'cuda':
+        return 132
+    return _sms(device.index if device.index is not None
+                else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

@@ -8,7 +8,8 @@ fp32 accumulation + fp32 bias, one rounding to x.dtype, + residual, and the
 fp32 statistics of the stored output. For a CUDA tensor whose C and Cout
 are multiples of 128 — the shapes the JAX package's default configuration
 sends to its Pallas kernels (the direct and H-Winograd forms; the 2-D
-Winograd form computes the same function) — that is csrc/conv3x3.cu; every
+Winograd form computes the same function) — that is csrc/conv3x3_sm90.cu
+(wgmma + TMA; its launch arithmetic is `conv3x3_launch_plan`); every
 other shape, and every CPU tensor, runs the plain version `conv3x3_plain`,
 as the JAX package leaves the other shapes to XLA. The kernel has no
 backward (the VAE is never differentiated): under grad, with an input that
@@ -25,6 +26,59 @@ from . import _build
 Stats = tuple[torch.Tensor, torch.Tensor]
 
 LAUNCHES = 0
+
+# K6's tiles (csrc/conv3x3_sm90.cu): a 16x16 output patch and 128 output
+# channels a block; the 18x18 halo of each 64-channel chunk in wgmma's
+# plain K-major core-matrix layout, [8 groups][328 pixels][8 channels]
+K6_T, K6_BN = 16, 128
+K6_HALO = K6_T + 2
+K6_GROUP_BYTES = 328 * 16          # one 8-channel group of the halo
+K6_THREADS = 384
+# two halo stages, four weight stages, two staging tiles, the barriers
+K6_SMEM = (1024 + 2 * 8 * K6_GROUP_BYTES + 4 * K6_BN * 128
+           + 2 * 2 * 128 * 128 + 256)
+H100_SMS = 132
+
+
+def conv3x3_launch_plan(n: int, h: int, w: int, c: int, cout: int,
+                        sms: int = H100_SMS) -> dict:
+    """What K6 launches for x [n, h, w, c] and Cout output channels: the
+    tensor maps of x (eight 8-channel boxes of the 18x18 halo from
+    (h0 - 1, w0 - 1), unswizzled), of the [Cout, 3, 3, C] weights (128
+    rows of 64 channels a box, 128-byte swizzle) and of the output and
+    residual (64-channel boxes of 16 rows x 8 columns, swizzled); the
+    tiles (column tiles fastest, then patch columns, patch rows, images)
+    and the persistent grid over them (one block an SM), the threads and
+    shared memory; and the A-operand arithmetic of the wgmma
+    descriptors: tap (ty, tx) of consumer group g starts
+    16 * (18 * ty + tx + 8 g) bytes into the halo, `sbo` bytes between
+    patch rows, `lbo` between the two 8-channel halves of a k-step, the
+    second 64-row block `mblock` bytes on. Raises ValueError on what the
+    kernel does not take."""
+    if min(n, h, w) < 1:
+        raise ValueError(f'K6: empty launch [{n},{h},{w},{c}]')
+    if c < 64 or c % 64 or cout < K6_BN or cout % K6_BN:
+        raise ValueError(f'K6 takes C % 64 == 0 and Cout % 128 == 0, got '
+                         f'C={c} Cout={cout}')
+    tiles = (cout // K6_BN, -(-w // K6_T), -(-h // K6_T), n)
+    ntiles = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+    if ntiles > 2 ** 31 - 1:
+        raise ValueError(f'K6: {ntiles} tiles')
+    out = dict(dims=(cout, w, h, n),
+               strides=(cout * 2, w * cout * 2, h * w * cout * 2),
+               box=(64, 8, K6_T, 1), swizzle=128)
+    return dict(x=dict(dims=(c, w, h, n),
+                       strides=(c * 2, w * c * 2, h * w * c * 2),
+                       box=(8, K6_HALO, K6_HALO, 1), swizzle=0),
+                w=dict(dims=(c, 9, cout), strides=(c * 2, 9 * c * 2),
+                       box=(64, 1, K6_BN), swizzle=128),
+                out=out, res=out, tiles=tiles, grid=(min(ntiles, sms),),
+                threads=K6_THREADS, smem=K6_SMEM, chunks=c // 64,
+                lbo=K6_GROUP_BYTES, sbo=K6_HALO * 16,
+                mblock=8 * K6_HALO * 16,
+                tap_bytes=tuple(16 * (K6_HALO * ty + tx) for ty in range(3)
+                                for tx in range(3)),
+                group_bytes=(0, 16 * 8))
 
 
 def channel_stats(x: torch.Tensor) -> Stats:
@@ -91,8 +145,8 @@ def _stats_buffers(want_stats, n, c, out):
 
 
 def _launch(x, a, b, weight, bias, residual, want_stats):
-    """Launch csrc/conv3x3.cu. The [Cout, 3, 3, C] bf16 weight layout it
-    reads (K contiguous) is made here on every call."""
+    """Launch csrc/conv3x3_sm90.cu. The [Cout, 3, 3, C] bf16 weight layout
+    it reads (K contiguous) is made here on every call."""
     global LAUNCHES
     _build.refuse_grad('star_conv3x3', x, a, b, weight, bias, residual)
     n, h, w, c = x.shape
@@ -101,10 +155,11 @@ def _launch(x, a, b, weight, bias, residual, want_stats):
             or not x.is_contiguous():
         raise ValueError('conv3x3 kernel takes a contiguous bf16 CUDA x, '
                          f'got {x.dtype} on {x.device}')
-    if c % 32 or cout % 128 or tuple(weight.shape) != (cout, c, 3, 3):
-        raise ValueError(f'conv3x3 kernel takes C % 32 == 0, Cout % 128 == '
-                         f'0 and a [Cout, C, 3, 3] weight, got C={c} weight '
-                         f'{tuple(weight.shape)}')
+    if tuple(weight.shape) != (cout, c, 3, 3):
+        raise ValueError(f'conv3x3 kernel takes a [Cout, C, 3, 3] weight, '
+                         f'got {tuple(weight.shape)} for C={c}')
+    plan = conv3x3_launch_plan(n, h, w, c, cout,
+                               sms=_build.sm_count(x.device))
     if residual is not None and (residual.shape != (n, h, w, cout)
                                  or residual.dtype != torch.bfloat16
                                  or not residual.is_contiguous()):
@@ -122,7 +177,7 @@ def _launch(x, a, b, weight, bias, residual, want_stats):
         x.data_ptr(), a.data_ptr(), b.data_ptr(), wk.data_ptr(),
         bias32.data_ptr(), None if residual is None else residual.data_ptr(),
         out.data_ptr(), s.data_ptr(), s2.data_ptr(), n, h, w, c, cout,
-        int(want_stats), _build.stream_ptr(dev))
+        int(want_stats), plan['grid'][0], _build.stream_ptr(dev))
     _build.check(err, 'star_conv3x3')
     LAUNCHES += 1
     return out, ((s, s2) if want_stats else None)

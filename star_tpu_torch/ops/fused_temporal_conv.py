@@ -4,8 +4,9 @@
 GN apply from threaded (sum, sumsq) statistics, SiLU, the three frame taps
 with fp32 accumulation, bias, optional residual, and the fp32 statistics of
 the output for the next GN. `gn_coeffs` folds the statistics into (a, b) in
-plain PyTorch; the rest is csrc/fused_tconv3.cu for a CUDA tensor and the
-plain version (the JAX package's `_tconv_xla`) for a CPU tensor.
+plain PyTorch; the rest is csrc/fused_tconv3_sm90.cu (wgmma + TMA; its
+launch arithmetic is `tconv3_launch_plan`) for a CUDA tensor and the plain
+version (the JAX package's `_tconv_xla`) for a CPU tensor.
 
 Under autograd the forward is the same, and the backward recomputes the
 plain chain (statistics, `gn_coeffs`, `tconv3_plain`) from the saved
@@ -29,6 +30,90 @@ from . import _build
 from .conv3x3 import Stats, channel_stats, gn_coeffs
 
 LAUNCHES = 0
+
+# K5's tiles (csrc/fused_tconv3_sm90.cu): at most 128 rows a tile (two
+# 64-row wgmma blocks), frame-major; two consumer warpgroups of NW columns
+K5_BM = 128
+K5_THREADS = 384      # a producer warpgroup and two consumers
+K5_SLABS, K5_MAX_WSTAGES = 3, 6
+# NW the kernel is built for, in the order of preference among widths that
+# pad Cout alike: at 1280 channels 128 (a 3-stage weight ring) beat 160
+# (2 stages), at 320 and 640 160 beat 80 (each element activated once;
+# chip_variants.py measured 80 slower at every main-path shape)
+K5_WIDTHS = (128, 160, 64, 32, 16)
+SMEM_LIMIT = 232448
+H100_SMS = 132
+
+
+def tconv3_tiles(frames: int) -> tuple[int, int]:
+    """(P, FT): P pixels (a multiple of 8, so a tap's shift of P rows is
+    whole 1024-byte swizzle atoms) and FT frames a tile, FT*P <= 128: all
+    frames when F < 16, else windows of 16 frames of 8 pixels."""
+    if frames >= 16:
+        return 8, 16
+    return min(64, 8 * (16 // frames)), frames
+
+
+def tconv3_width(cout: int) -> int:
+    """NW: the fewest padded output columns over 2*NW-wide tiles, then the
+    first in K5_WIDTHS (chip_variants.py k5 measured the order)."""
+    return min(K5_WIDTHS, key=lambda nw: (-(-cout // (2 * nw)) * 2 * nw,
+                                          K5_WIDTHS.index(nw)))
+
+
+def _map4(d0, n, f, bsz, box, swizzle):
+    """A 4-D TMA tensor map over [bsz, f, n, d0] bf16: dims and box
+    innermost first, strides in bytes of dims 1-3."""
+    return dict(dims=(d0, n, f, bsz),
+                strides=(d0 * 2, n * d0 * 2, f * n * d0 * 2), box=box,
+                swizzle=swizzle)
+
+
+def tconv3_launch_plan(bsz: int, frames: int, n: int, c: int, cout: int,
+                       nw: int | None = None, sms: int = H100_SMS) -> dict:
+    """What K5 launches for x [bsz, frames, n, c] and Cout output channels:
+    the tensor maps of x (slabs of FT + 2 frames from f0 - 1, 128-byte
+    swizzle), of the K-major weights [3, Cout, C] (NW rows a box) and of the
+    output and residual ([FT, P, BW] boxes, BW the widest of 64, 32, 16
+    columns dividing NW, under the swizzle of 2 BW bytes); P, FT and NW; the
+    slab's bytes (room for the 2P + 128 rows the third tap reads); the
+    tiles (column tiles fastest, then pixel tiles, frame tiles, batch) and
+    the persistent grid over them (one block an SM); the depth of the
+    weight ring (as deep as shared memory allows, 2 to 6), the threads,
+    the shared memory, the 64-channel chunks and the slab row at which
+    each tap's A operand starts. Raises ValueError on what the kernel does
+    not take."""
+    if min(bsz, frames, n) < 1:
+        raise ValueError(f'K5: empty launch [{bsz},{frames},{n},{c}]')
+    if c < 8 or cout < 8 or c % 8 or cout % 8:
+        raise ValueError(f'K5 takes C and Cout multiples of 8 (16-byte TMA '
+                         f'rows), got C={c} Cout={cout}')
+    p, ft = tconv3_tiles(frames)
+    nw = tconv3_width(cout) if nw is None else nw
+    if nw not in K5_WIDTHS:
+        raise ValueError(f'K5 is built for NW in {K5_WIDTHS}, not {nw}')
+    slab_bytes = (2 * p + K5_BM) * 128
+    # the slab ring, two staging tiles of [128][NW], the barriers, and as
+    # many weight stages of [2 NW][128 B] as fit
+    fixed = 1024 + K5_SLABS * slab_bytes + 512 * nw + 256
+    wstages = min(K5_MAX_WSTAGES, (SMEM_LIMIT - fixed) // (256 * nw))
+    smem = fixed + wstages * 256 * nw
+    tiles = (-(-cout // (2 * nw)), -(-n // p), -(-frames // ft), bsz)
+    ntiles = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+    if wstages < 2 or ntiles > 2 ** 31 - 1:
+        raise ValueError(f'K5: {wstages} weight stages, {ntiles} tiles')
+    # output and residual in boxes of the staging's sub-tiles: bw columns
+    # under the swizzle of their row width
+    bw = 64 if nw % 64 == 0 else 32 if nw % 32 == 0 else 16
+    out = _map4(cout, n, frames, bsz, (bw, p, ft, 1), 2 * bw)
+    return dict(x=_map4(c, n, frames, bsz, (64, p, ft + 2, 1), 128),
+                w=dict(dims=(c, cout, 3), strides=(c * 2, cout * c * 2),
+                       box=(64, nw, 1), swizzle=128),
+                out=out, res=out, p=p, ft=ft, nw=nw, bn=2 * nw,
+                slab_bytes=slab_bytes, wstages=wstages, smem=smem,
+                tiles=tiles, grid=(min(ntiles, sms),), threads=K5_THREADS,
+                chunks=-(-c // 64),
+                tap_rows=(0, p, 2 * p))
 
 
 def tconv3_plain(x, a, b, kernel3, bias, residual, want_stats,
@@ -57,18 +142,20 @@ def _launch(x, a, b, kernel3, bias, residual, want_stats, per_frame):
     global LAUNCHES
     bsz, f, n, c = x.shape
     cout = kernel3.shape[-1]
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError('fused tconv kernel takes a contiguous bf16 x')
-    if c % 32 or cout % 8:
-        raise ValueError(f'fused tconv kernel takes C % 32 == 0 and '
-                         f'Cout % 8 == 0, got C={c} Cout={cout}')
+    if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError('fused tconv kernel takes a contiguous bf16 CUDA '
+                         f'x, got {x.dtype} on {x.device}')
+    plan = tconv3_launch_plan(bsz, f, n, c, cout,
+                              sms=_build.sm_count(x.device))
     if residual is not None and (residual.shape != (bsz, f, n, cout)
                                  or residual.dtype != torch.bfloat16
                                  or not residual.is_contiguous()):
         raise ValueError('fused tconv kernel takes a contiguous bf16 '
                          'residual of the output shape')
     dev = x.device
-    w = kernel3.to(device=dev, dtype=torch.bfloat16).contiguous()
+    # K-major taps [3, Cout, C]: the B operand's rows under the swizzle
+    w = kernel3.to(device=dev, dtype=torch.bfloat16).transpose(
+        1, 2).contiguous()
     a = a.to(device=dev, dtype=torch.float32).contiguous()
     b = b.to(device=dev, dtype=torch.float32).contiguous()
     bias32 = bias.to(device=dev, dtype=torch.float32).contiguous()
@@ -83,7 +170,9 @@ def _launch(x, a, b, kernel3, bias, residual, want_stats, per_frame):
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
         bias32.data_ptr(), None if residual is None else residual.data_ptr(),
         out.data_ptr(), s.data_ptr(), s2.data_ptr(), bsz, f, n, c, cout,
-        int(want_stats), int(per_frame), _build.stream_ptr(dev))
+        int(want_stats), int(per_frame), plan['p'], plan['ft'], plan['nw'],
+        plan['slab_bytes'], plan['wstages'], plan['grid'][0], plan['smem'],
+        _build.stream_ptr(dev))
     _build.check(err, 'star_fused_gn_silu_tconv3')
     LAUNCHES += 1
     return out, ((s, s2) if want_stats else None)

@@ -46,6 +46,7 @@ card, or without the star_tpu_torch package beside it, it fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -133,10 +134,24 @@ def vae_decode_per_call(bsz, f):
     return k5, k6
 
 
+def vae_decode_k7_per_call(bsz, f):
+    """K7 launches of one decoder call on `bsz` windows of `f` frames: its
+    three upsamples, each on the bsz*f images, (images, small grid, C,
+    Cout) -> launches."""
+    return {((bsz * f,), grid, c, c): 1
+            for grid, c in (((90, 160), 512), ((180, 320), 512),
+                            ((360, 640), 256))}
+
+
 K5_PER_CFG_STEP = sum(UNET_K5_PER_CFG_CALL.values())        # 128
 K5_PER_DECODE = sum(vae_decode_per_call(2, 3)[0].values())   # 28
 K6_PER_DECODE = sum(vae_decode_per_call(2, 3)[1].values())   # 28
 K6_PER_ENCODE = sum(VAE_K6_PER_ENCODE.values())              # 20
+# a clip's decode and a train step's decode of pred-x0 are the same two
+# decoder calls: two 3-frame windows folded into a batch, the last 2 frames
+DECODE_K7 = (vae_decode_k7_per_call(2, 3), vae_decode_k7_per_call(1, 2))
+K7_BY_SHAPE = {**DECODE_K7[0], **DECODE_K7[1]}
+K7_PER_CLIP = K7_PER_TRAIN_STEP = sum(K7_BY_SHAPE.values())  # 6
 
 
 def unet_k5(batch: int) -> dict:
@@ -149,11 +164,26 @@ def unet_k5(batch: int) -> dict:
     return out
 
 
+def k7_work(n, h, w, c, cout) -> tuple[float, float]:
+    """K7's FLOPs and bytes on x [n, h, w, c]: four phase 2x2 convs on the
+    small grid; x read once, the [16, C, Cout] bf16 weights, the 2x output
+    written once, the fp32 bias and statistics."""
+    flops = 2.0 * n * 4 * h * w * 4 * c * cout
+    nbytes = (2 * (n * h * w * c + 16 * c * cout + 4 * n * h * w * cout)
+              + 4 * cout + 8 * n * cout)
+    return flops, nbytes
+
+
 def bound_sum_ms(kind: str, *tables: dict) -> float:
-    """Sum over shapes of launches x bound (bound_ms) of K5 or K6."""
+    """Sum over shapes of launches x bound (bound_ms) of K5, K6 or K7."""
     total = 0.0
     for table in tables:
-        for (lead, grid, c, cout, res), n in table.items():
+        for key, n in table.items():
+            if kind == 'k7':
+                (imgs,), (h, w), c, cout = key
+                total += n * bound_ms(*k7_work(imgs, h, w, c, cout))[0]
+                continue
+            lead, grid, c, cout, res = key
             m = math.prod(lead) * grid[0] * grid[1]
             flops = 2.0 * m * (3 if kind == 'k5' else 9) * c * cout
             nbytes = 2 * (m * c + m * cout * (2 if res else 1)
@@ -214,6 +244,25 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1, graph: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def k7_shapes():
+    """Counts K7's launches by (images, small grid, C, Cout) while on, in
+    the keys of vae_decode_k7_per_call."""
+    from star_tpu_torch.ops import upsample_conv as uc
+    real, seen = uc._launch_upsample, {}
+
+    def launch(x, k_rs, bias, want_stats):
+        key = ((x.shape[0],), tuple(x.shape[1:3]), x.shape[3],
+               k_rs.shape[-1])
+        seen[key] = seen.get(key, 0) + 1
+        return real(x, k_rs, bias, want_stats)
+    uc._launch_upsample = launch
+    try:
+        yield seen
+    finally:
+        uc._launch_upsample = real
 
 
 def assert_launches(what: str, counts: dict, want: dict) -> None:
@@ -556,11 +605,11 @@ def check_vae_kernels(dev, g, randn, record, results) -> None:
         computed_by='the same kernel (csrc/conv3x3_sm90.cu)')
     torch.cuda.synchronize()
 
-    # K7: the three decoder upsamples, with statistics. The plain version
-    # rounds K_rs to bf16 as the kernel does; the library call (nearest
-    # upsample + cuDNN conv with the bf16 3x3 weights) shows what that
-    # rounding costs against the un-decomposed conv.
-    def k7_case(n, h, w, c, timed):
+    # K7: the three decoder upsamples, with statistics, each timed. The
+    # plain version rounds K_rs to bf16 as the kernel does; the library
+    # call (nearest upsample + cuDNN conv with the bf16 3x3 weights) shows
+    # what that rounding costs against the un-decomposed conv.
+    def k7_case(n, h, w, c):
         x = randn(n, h, w, c)
         wt = (torch.randn(c, c, 3, 3, generator=g, device=dev)
               / math.sqrt(9 * c)).to(torch.bfloat16)
@@ -578,24 +627,23 @@ def check_vae_kernels(dev, g, randn, record, results) -> None:
         agrees(what + ' vs interpolate + 3x3 conv',
                [(y, library().permute(0, 2, 3, 1))])
         del y
-        if not timed:
-            return None
         ms = cuda_ms(lambda: uc.upsample_conv2x(x, wt, cb, want_stats=True))
         plain_ms = cuda_ms(lambda: uc.upsample_conv2x_plain(x, k_rs, cb,
                                                             True), reps=1)
         lib_ms = cuda_ms(library)
-        nbytes = 2 * (x.numel() + 4 * n * h * w * c)
-        return agree, ms, plain_ms, 2.0 * n * 4 * h * w * 4 * c * c, \
-            nbytes, lib_ms
+        return agree, ms, plain_ms, *k7_work(n, h, w, c, c), lib_ms
 
-    k7_case(6, 90, 160, 512, False)
-    k7_case(6, 180, 320, 512, False)
-    k7 = k7_case(6, 360, 640, 256, True)
-    record('upsample_conv2x', 'cuda', 'star_tpu_torch/csrc/upsample_conv.cu',
+    k7s = [k7_case(6, 90, 160, 512), k7_case(6, 180, 320, 512)]
+    k7 = k7_case(6, 360, 640, 256)
+    record('upsample_conv2x', 'cuda',
+           'star_tpu_torch/csrc/upsample_conv_sm90.cu',
            'star_tpu/ops/conv3x3.py:1117', k7[0], *k7[1:],
            [6, 360, 640, 256, 256])
     results['upsample_conv2x']['library'] = (
         'two calls: F.interpolate(nearest) + F.conv2d')
+    results['upsample_conv2x']['shapes'] = [
+        sub_record([6, h, w, 512, 512], k[0], *k[1:])
+        for (h, w), k in zip(((90, 160), (180, 320)), k7s)]
     torch.cuda.synchronize()
 
     # K8 at the phase shapes of the 256-channel upsample, with statistics
@@ -1315,7 +1363,8 @@ def run_pipeline(dev) -> dict:
         lambda *_: unet_calls.append(1))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = pipe.enhance_a_video(frames, 'a good video', seed=666)
+    with k7_shapes() as k7_seen:
+        out = pipe.enhance_a_video(frames, 'a good video', seed=666)
     clip_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     hook.remove()
@@ -1335,7 +1384,8 @@ def run_pipeline(dev) -> dict:
     assert not missing, f'kernels not launched on the main path: {missing}'
     log(f'VAE kernels on the main path: conv3x3 {launches["conv3x3"]} '
         f'(expected 76: encoder 20 + two decoder calls of 28), '
-        f'upsample_conv2x {launches["upsample_conv2x"]} (expected 6), '
+        f'upsample_conv2x {launches["upsample_conv2x"]} (expected '
+        f'{K7_PER_CLIP}), '
         f'interleave2x2 {launches["interleave2x2"]} (expected 0)')
     # K10/K11: every UNet call, and CLIP on the prompt and the negative one
     n = len(unet_calls)
@@ -1344,7 +1394,9 @@ def run_pipeline(dev) -> dict:
         'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln'],
         'flash_d512': D512_PER_CLIP,
         'fused_gn_silu_tconv3': n * K5_PER_CFG_STEP + 2 * K5_PER_DECODE,
-        'conv3x3': K6_PER_ENCODE + 2 * K6_PER_DECODE})
+        'conv3x3': K6_PER_ENCODE + 2 * K6_PER_DECODE,
+        'upsample_conv2x': K7_PER_CLIP})
+    assert k7_seen == K7_BY_SHAPE, f'clip: K7 launches by shape {k7_seen}'
     return dict(models=models, pipe=pipe, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), unet_calls=len(unet_calls),
                 peak_gb=peak_gb, out_mean=float(out.mean()),
@@ -1388,8 +1440,8 @@ KERNEL_FAMILIES = (
     ('K3 flash backward', ('flash_bwd',)),
     ('K4 frame attention', ('temporal_attention_kernel',)),
     ('K5 fused GN+SiLU+tconv', ('fused_tconv3',)),
-    ('K6 fused GN+SiLU+3x3 conv', ('conv3x3_sm90', 'conv_tile_kernel<9>')),
-    ('K7 fused upsample+conv', ('conv_tile_kernel',)),
+    ('K6 fused GN+SiLU+3x3 conv', ('conv3x3_sm90',)),
+    ('K7 fused upsample+conv', ('upsample_conv_sm90',)),
     ('K8 interleave', ('interleave2x2',)),
     ('K9 qk-LN+RoPE', ('qk_ln_rope',)),
     ('K10 LayerNorm', ('star_ln_kernel',)),
@@ -1410,6 +1462,34 @@ def kernel_family(name: str) -> str:
 
 
 GEMM_OPS = ('aten::mm', 'aten::addmm', 'aten::bmm', 'aten::baddbmm')
+# cuBLAS kernels of fp32 GEMMs on the SIMT path (FFMA): the xmma ones
+# name their types, the CUTLASS ones are sgemm, the small ones gemmSN
+FP32_GEMM_KERNELS = ('f32f32_f32f32', 'sgemm', 'gemmSN')
+# the UNet's K5 widths: the backward's tap products are [M, 3C] x [3C, C]
+# (the recompute), [M, C] x [C, 3C] (dys) and [3C, M] x [M, C] (dkb)
+K5_WIDTHS = (320, 640, 1280)
+
+
+def is_k5_product(shapes) -> bool:
+    """An mm of K5's tap product or one of its gradients, by shape."""
+    if len(shapes) != 2 or len(shapes[0]) != 2 or len(shapes[1]) != 2:
+        return False
+    (m, k), (k2, n) = shapes
+    return k == k2 and any((k, n) in ((3 * c, c), (c, 3 * c))
+                           or (m, n) == (3 * c, c) for c in K5_WIDTHS)
+
+
+def fp32_k5_products(prof) -> list:
+    """The GEMM ops of a profile with K5's tap-product shapes that ran an
+    fp32 SIMT kernel: (op, shapes, kernel) for each."""
+    out = []
+    for ev in prof.events():
+        if ev.name not in GEMM_OPS or not is_k5_product(ev.input_shapes):
+            continue
+        for k in ev.kernels:
+            if any(key in k.name for key in FP32_GEMM_KERNELS):
+                out.append((ev.name, ev.input_shapes, k.name[:80]))
+    return out
 
 
 def profile_step(step, path: str, gemm_sources: bool = False,
@@ -1463,16 +1543,19 @@ def profile_step(step, path: str, gemm_sources: bool = False,
         ms = families.get(fam, 0.0)
         log(f'{fam}: {ms:.1f} ms against a bound of {b:.1f} ms for its '
             f'launches (lost {ms - b:.1f} ms)')
-    gemms = None
+    gemms = k5_fp32 = None
     if gemm_sources:
         root, ext = os.path.splitext(path)
         gemms = gemm_table(prof, f'{root}_gemms{ext or ".txt"}')
+        k5_fp32 = fp32_k5_products(prof)
+        log(f'GEMMs of K5 tap-product shapes on an fp32 SIMT kernel: '
+            f'{len(k5_fp32)} {k5_fp32[:3]}')
     log(f'profiled step: wall {wall_ms:.1f} ms (profiler on), device busy '
         f'{busy_ms:.1f} ms; top: '
         + '; '.join(f"{r['kernel'][:40]} {r['ms']} ms x{r['count']}"
                     for r in top[:6]))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=families,
-                top=top, bounds=bounds, gemms=gemms)
+                top=top, bounds=bounds, gemms=gemms, k5_fp32=k5_fp32)
 
 
 def gemm_table(prof, path: str) -> list:
@@ -1611,7 +1694,8 @@ def run_train(dev, models, profile: str | None = None) -> dict:
             end = torch.cuda.Event(enable_timing=True)
             h0 = time.perf_counter()
             start.record()
-            state, m = step(state, batch, t=t, noise=noise)
+            with k7_shapes() as k7_seen:
+                state, m = step(state, batch, t=t, noise=noise)
             end.record()
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - h0) * 1e3
@@ -1638,7 +1722,10 @@ def run_train(dev, models, profile: str | None = None) -> dict:
                 # forward and remat recompute, and the decode of pred-x0
                 'fused_gn_silu_tconv3': 2 * K5_PER_CFG_STEP
                 + 2 * K5_PER_DECODE,
-                'conv3x3': 2 * K6_PER_DECODE})
+                'conv3x3': 2 * K6_PER_DECODE,
+                'upsample_conv2x': K7_PER_TRAIN_STEP})
+            assert k7_seen == K7_BY_SHAPE, f'train step {i}: K7 launches ' \
+                f'by shape {k7_seen}'
             if i:
                 times.append(ms)
                 per_step.append(counts)
@@ -1672,7 +1759,11 @@ def run_train(dev, models, profile: str | None = None) -> dict:
             one_step, f'{root}_train{ext or ".txt"}', gemm_sources=True,
             bounds={'K5 fused GN+SiLU+tconv': bound_sum_ms(
                 'k5', unet_k5(1), unet_k5(1), *DECODE_K5),
-                'K6 fused GN+SiLU+3x3 conv': bound_sum_ms('k6', *DECODE_K6)})
+                'K6 fused GN+SiLU+3x3 conv': bound_sum_ms('k6', *DECODE_K6),
+                'K7 fused upsample+conv': bound_sum_ms('k7', *DECODE_K7)})
+        # K5's backward multiplies bf16 operands on the tensor cores, as
+        # the JAX function does: none of its products may run in fp32
+        assert not res['profile']['k5_fp32'], res['profile']['k5_fp32'][:3]
     return res
 
 

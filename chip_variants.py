@@ -1,6 +1,6 @@
 """Time design variants of the port's hand-written kernels on one CUDA card.
 
-    python3 chip_variants.py            # K1, K10/K11, K3, K2 d=512, K5, K6
+    python3 chip_variants.py            # K1, K10/K11, K3, K2 d=512, K5-K7
     python3 chip_variants.py k5 k6      # or only some families
 
 Each variant is a committed source (star_tpu_torch/csrc/) with a few lines
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -252,10 +253,68 @@ K6_VARIANTS = {
         '          mbar_expect_tx('))], False),
 }
 
+K7_SRC = 'upsample_conv_sm90.cu'
+K7_WLOAD = (
+    '            mbar_wait(&bars.w_empty[ws], ((i / WSTAGES) & 1) ^ 1);\n'
+    '            mbar_expect_tx(&bars.w_full[ws], WST_BYTES);')
+K7_HLOAD = (
+    '          mbar_wait(&bars.act_empty[s], ((k / ASTAGES) & 1) ^ 1);\n'
+    '          mbar_expect_tx(&bars.act_full[s], 8 * HPIX * 16);')
+K7_ORDER = ('  r.col0 = (t % p.nct) * BN;\n  t /= p.nct;\n'
+            '  r.phase = t % PHASES;\n  t /= PHASES;\n')
+K7_VARIANTS = {
+    'astages3_wstages2': (K7_SRC, [(
+        'constexpr int ASTAGES = 2, WSTAGES = 4;',
+        'constexpr int ASTAGES = 3, WSTAGES = 2;')], True),
+    'wstages2': (K7_SRC, [('constexpr int ASTAGES = 2, WSTAGES = 4;',
+                           'constexpr int ASTAGES = 2, WSTAGES = 2;')], True),
+    # the phase fastest in the walk, then the column tile
+    'phase_fastest': (K7_SRC, [(K7_ORDER, (
+        '  r.phase = t % PHASES;\n  t /= PHASES;\n'
+        '  r.col0 = (t % p.nct) * BN;\n  t /= p.nct;\n'))], True),
+    'no_stats (timing only)': (K7_SRC, [(
+        '    if (p.want_stats) {\n      // thread: columns',
+        '    if (false) {\n      // thread: columns')], False),
+    'no_stores (timing only)': (K7_SRC, [(
+        '    if (tid == 0)\n      for (int u = 0; u < 2; ++u)\n'
+        '        tma_store_4d(',
+        '    if (tid < 0)\n      for (int u = 0; u < 2; ++u)\n'
+        '        tma_store_4d(')], False),
+    # no staging, stores or statistics: what the products and loads take
+    'no_epilogue (timing only)': (K7_SRC, [(
+        '    // epilogue: staging is two',
+        '    if (t >= 0) continue;\n    // epilogue: staging is two')], False),
+    'no_products (timing only)': (K7_SRC, [(
+        '        for (int kk = 0; kk < 4; ++kk) {\n          const int sc',
+        '        for (int kk = 0; kk < 0; ++kk) {\n          const int sc')],
+        False),
+    'weights_once (timing only)': (K7_SRC, [(K7_WLOAD, K7_WLOAD.replace(
+        '            mbar_expect_tx(', '            if (i >= WSTAGES) {\n'
+        '              mbar_arrive(&bars.w_full[ws]);\n'
+        '              continue;\n            }\n'
+        '            mbar_expect_tx('))], False),
+    'halos_once (timing only)': (K7_SRC, [(K7_HLOAD, K7_HLOAD.replace(
+        '          mbar_expect_tx(', '          if (k >= ASTAGES) {\n'
+        '            mbar_arrive(&bars.act_full[s]);\n'
+        '            continue;\n          }\n'
+        '          mbar_expect_tx('))], False),
+}
+
+
+# headers written into a variant's source, so that its replacements reach
+# the code they hold (the shared kernel body of K6 and K7)
+INLINED = ('halo_conv_sm90.cuh',)
+
 
 def variant_source(src: str, subs) -> str:
     with open(os.path.join(CSRC, src)) as fh:
         text = fh.read()
+    for name in INLINED:
+        include = f'#include "{name}"\n'
+        if include in text:
+            with open(os.path.join(CSRC, name)) as fh:
+                text = text.replace(
+                    include, fh.read().replace('#pragma once\n', ''))
     for old, new in subs:
         if old not in text:
             raise RuntimeError(f'{src}: variant text not found: {old[:60]!r}')
@@ -688,12 +747,66 @@ def k6(dev, g) -> list[dict]:
     return rows
 
 
+def k7(dev, g) -> list[dict]:
+    """K7 at the decoder's three upsamples (6 images, with statistics)."""
+    import torch
+    from star_tpu_torch.ops import _build, upsample_conv as uc
+    libs = build(K7_VARIANTS)
+    checked = {'base'} | {k for k, v in K7_VARIANTS.items() if v[2]}
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+
+    def call(lib, x, wk, bias):
+        n, h, w, c = x.shape
+        cout = wk.shape[0]
+        plan = uc.upsample_conv2x_launch_plan(n, h, w, c, cout)
+        out = torch.empty(n, 2 * h, 2 * w, cout, device=dev,
+                          dtype=torch.bfloat16)
+        s1 = torch.zeros(n, cout, device=dev)
+        s2 = torch.zeros(n, cout, device=dev)
+        err = lib.star_upsample_conv2x(
+            x.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), n, h, w, c, cout, 1,
+            *uc.k7_plan_args(plan), plan['grid'][0], _build.stream_ptr(dev))
+        _build.check(err, 'star_upsample_conv2x')
+        return out, (s1, s2)
+
+    rows = []
+    for shape in ((6, 360, 640, 256), (6, 180, 320, 512), (6, 90, 160, 512)):
+        n, h, w, c = shape
+        x = randn(n, h, w, c)
+        wt = (torch.randn(c, c, 3, 3, generator=g, device=dev)
+              / math.sqrt(9 * c)).bfloat16()
+        bias = torch.randn(c, generator=g, device=dev) * 0.1
+        k_rs = uc.phase_weights(wt)
+        wk = uc.k7_weights(k_rs, dev)
+        ref, sref = uc.upsample_conv2x_plain(x, k_rs, bias, True)
+        for name in sorted(checked):
+            out, st = call(libs[name], x, wk, bias)
+            cs.agrees(f'K7 {name} {list(shape)}', [(out, ref)])
+            cs.stats_agree(f'K7 {name} {list(shape)}', st, sref)
+            del out, st
+        del ref, sref
+        ms = in_turn(libs, lambda lib: call(lib, x, wk, bias), reps=5)
+        flops, nbytes = cs.k7_work(n, h, w, c, c)
+        bound = cs.bound_ms(flops, nbytes)[0]
+        for name, t in ms.items():
+            rows.append(dict(kernel='K7', variant=name, shape=list(shape),
+                             ms=t, tflops=flops / min(t) / 1e9,
+                             bound_ms=bound))
+            cs.log(f'K7 {name:28s} {list(shape)}: '
+                   + ' '.join(f'{m:.3f}' for m in t)
+                   + f' ms, {rows[-1]["tflops"]:.0f} TFLOP/s, '
+                   f'{100 * bound / min(t):.0f}% of the bound')
+        del x
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print('chip_variants: no CUDA device', file=sys.stderr)
         return 2
-    which = sys.argv[1:] or ['k1', 'ln', 'k3', 'd512', 'k5', 'k6']
+    which = sys.argv[1:] or ['k1', 'ln', 'k3', 'd512', 'k5', 'k6', 'k7']
     card = cs.card_line()
     cs.log(f'card: {card}')
     dev = torch.device('cuda', 0)
@@ -711,6 +824,8 @@ def main() -> int:
         rows += k5(dev, g)
     if 'k6' in which:
         rows += k6(dev, g)
+    if 'k7' in which:
+        rows += k7(dev, g)
     clocks = subprocess.run(
         ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
          '--format=csv,noheader'], capture_output=True, text=True).stdout

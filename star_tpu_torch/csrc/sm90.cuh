@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives for the port's warp-specialised kernels (K1/K2
 // in flash_fwd_sm90.cu and flash_fwd_d512_sm90.cu, K3 in flash_bwd_sm90.cu,
-// K5 in fused_tconv3_sm90.cu, K6 in conv3x3_sm90.cu), in raw PTX:
+// K5 in fused_tconv3_sm90.cu, K6 and K7 in halo_conv_sm90.cuh), in raw
+// PTX:
 // mbarriers (also across a cluster), TMA tensor copies (3-D and 4-D,
 // 32/64/128-byte swizzle or none, multicast) and bulk copies, their tensor
 // maps, wgmma descriptors (swizzled and plain), fences and products, named

@@ -59,8 +59,11 @@ _SIGNATURES = {
     # x, a, b, w, bias, residual, out, sum, sumsq, N, H, W, C, Cout,
     # want_stats, grid, stream
     'star_conv3x3': [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    # x, w, bias, out, sum, sumsq, N, H, W, C, Cout, want_stats, stream
-    'star_upsample_conv2x': [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # x, w [Cout, 16, C], bias, out, sum, sumsq, N, H, W, C, Cout,
+    # want_stats, phase offsets [4], phase strides [3], tap bytes [16],
+    # grid, stream
+    'star_upsample_conv2x': [P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, I,
+                             P],
     # p00, p01, p10, p11, out, sum, sumsq, N, H, W, C, want_stats, stream
     'star_interleave2x2': [P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, cos, sin, scale, bias, out, rows, S, H, eps, stream

@@ -18,10 +18,15 @@ version runs on the card, by design. The threaded statistics are inputs
 and outputs of the differentiated function: the backward takes
 cotangents for the output (sum, sumsq) and returns them for the incoming
 ones, which carry the mean and variance terms of the next GroupNorm's
-gradient back to the stage that produced them.
+gradient back to the stage that produced them. With bf16 operands the
+plain version's tap product and its two gradients are bf16 GEMMs with fp32
+accumulation (`_TapProduct`), as the JAX function's einsum of bf16
+operands and its VJP are: on the card they run on the tensor cores.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -116,10 +121,70 @@ def tconv3_launch_plan(bsz: int, frames: int, n: int, c: int, cout: int,
                 tap_rows=(0, p, 2 * p))
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16 matrices with fp32 accumulation and an fp32 result:
+    one bf16 GEMM on the card's tensor cores; on the CPU (which has no
+    kernel for `out_dtype`) the fp32 product of the upcast operands, whose
+    values are the same up to the order of the sums."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+@contextlib.contextmanager
+def _fp32_reductions():
+    """cuBLAS may add the split-K partial sums of a bf16 GEMM in bf16
+    unless told not to; fp32 accumulation is the contract, so this turns
+    that off for the GEMMs inside and restores the process's setting."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16 matrices with fp32 accumulation, rounded once to bf16:
+    cuBLAS on the card (tensor cores), PyTorch's bf16 matmul on the CPU."""
+    with _fp32_reductions():
+        return torch.mm(a, b)
+
+
+class _TapProduct(torch.autograd.Function):
+    """The three taps' product ys [M, 3C] @ kb [3C, Cout] of bf16 operands
+    with fp32 accumulation and an fp32 result, as the JAX function's
+    einsum(..., preferred_element_type=f32) (`_tconv_xla`,
+    star_tpu/ops/fused_temporal_conv.py:147-168). Its gradients are what
+    JAX's VJP of that einsum computes: dys = ct @ kb^T and dkb = ys^T @ ct
+    as bf16 GEMMs with fp32 accumulation, each rounded once to bf16. The
+    cotangent ct is the gradient of the fp32 result through its one
+    rounding to bf16 (plus the fp32 bias), so it holds bf16 values and is
+    passed to the GEMM as bf16 without loss."""
+
+    @staticmethod
+    def forward(ctx, ys, kb):
+        ctx.save_for_backward(ys, kb)
+        return _mm_f32(ys, kb)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ys, kb = ctx.saved_tensors
+        ct = ct.to(torch.bfloat16)
+        dys = dkb = None
+        if ctx.needs_input_grad[0]:
+            dys = _mm_bf16(ct, kb.t())
+        if ctx.needs_input_grad[1]:
+            dkb = _mm_bf16(ys.t(), ct)
+        return dys, dkb
+
+
 def tconv3_plain(x, a, b, kernel3, bias, residual, want_stats,
                  per_frame=False):
     """x [B, F, N, C]; (a, b) [B, C] fp32; kernel3 [3, C, Cout]. Bulk apply
-    and SiLU in x.dtype, taps accumulate in fp32, SAME padding over F."""
+    and SiLU in x.dtype, taps accumulate in fp32 (bf16 operands through
+    `_TapProduct`, fp32 ones in fp32), SAME padding over F."""
     bsz, f, n, c = x.shape
     cout = kernel3.shape[-1]
     y = x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
@@ -127,7 +192,11 @@ def tconv3_plain(x, a, b, kernel3, bias, residual, want_stats,
     kb = kernel3.reshape(3 * c, cout).to(x.dtype)
     yp = F.pad(y, (0, 0, 0, 0, 1, 1))
     ys = torch.cat([yp[:, tap:tap + f] for tap in range(3)], dim=-1)
-    out = torch.matmul(ys.float(), kb.float())
+    if x.dtype == torch.bfloat16:
+        out = _TapProduct.apply(ys.reshape(-1, 3 * c), kb).reshape(
+            bsz, f, n, cout)
+    else:
+        out = torch.matmul(ys.float(), kb.float())
     out = (out + bias.float()).to(x.dtype)
     if residual is not None:
         out = out + residual

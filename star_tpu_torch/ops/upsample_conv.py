@@ -8,11 +8,12 @@ col % 2) reads a fixed 2x2 window of the small grid, so the conv is four
 weights (`phase_weights`, in fp32, rounded once to the input dtype):
 
   K7 `upsample_conv2x`: for a CUDA tensor whose widths the kernel takes
-     (C % 32 == 0 and Cout % 128 == 0: every decoder upsample of the
+     (C % 64 == 0 and Cout % 128 == 0: every decoder upsample of the
      full-width VAE) the four phase convs, fp32 bias and the interleave run
-     in csrc/upsample_conv.cu. Other widths run the four phase convs as
-     torch convolutions with fp32 accumulation (as the JAX package leaves
-     them to XLA), each rounded once after the fp32 bias, and K8
+     in csrc/upsample_conv_sm90.cu (wgmma + TMA; its launch arithmetic is
+     `upsample_conv2x_launch_plan`). Other widths run the four phase convs
+     as torch convolutions with fp32 accumulation (as the JAX package
+     leaves them to XLA), each rounded once after the fp32 bias, and K8
      interleaves them.
   K8 `interleave2x2`: out[2i+r, 2j+s] = p_rs[i, j] plus the output
      statistics, csrc/interleave2x2.cu for a CUDA tensor.
@@ -25,34 +26,110 @@ raise.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv3x3 import _stats_buffers, channel_stats
+from .conv3x3 import (H100_SMS, K6_BN, K6_GROUP_BYTES, K6_SMEM, K6_T,
+                      K6_THREADS, _stats_buffers, channel_stats)
 
 UPSAMPLE_LAUNCHES = 0     # K7
 INTERLEAVE_LAUNCHES = 0   # K8
 
-_M = (
-    ((1.0, 0.0), (0.0, 1.0), (0.0, 1.0)),   # even outputs: a=0 -> p=0; a=1,2 -> p=1
-    ((1.0, 0.0), (1.0, 0.0), (0.0, 1.0)),   # odd outputs:  a=0,1 -> p=0; a=2 -> p=1
-)
+# the 3x3 taps a (rows, or columns) that fold into tap p of phase r: even
+# outputs read a = 0 at p = 0 and a = 1, 2 at p = 1; odd outputs a = 0, 1
+# at p = 0 and a = 2 at p = 1
+_FOLD = (((0,), (1, 2)), ((0, 1), (2,)))
+
+
+# K7's tiles (csrc/upsample_conv_sm90.cu): K6's (ops/conv3x3.py) with the
+# phase as a tile index: a 16x16 patch of the small grid, one phase and 128
+# output channels a block; the 18x18 halo of each 64-channel chunk in
+# wgmma's plain K-major core-matrix layout serves the four phases' taps
+K7_T, K7_BN, K7_PHASES = K6_T, K6_BN, 4
+K7_HALO = K7_T + 2
 
 
 def k7_takes(c: int, cout: int) -> bool:
-    """The widths the K7 kernel's tiles divide."""
-    return c % 32 == 0 and cout % 128 == 0
+    """The widths the K7 kernel's tiles divide: whole 64-channel chunks and
+    128-channel column tiles."""
+    return c >= 64 and c % 64 == 0 and cout >= K7_BN and cout % K7_BN == 0
+
+
+def upsample_conv2x_launch_plan(n: int, h: int, w: int, c: int, cout: int,
+                                sms: int = H100_SMS) -> dict:
+    """What K7 launches for x [n, h, w, c] and Cout output channels: the
+    tensor map of x (eight 8-channel boxes of the 18x18 halo from
+    (h0 - 1, w0 - 1), unswizzled: K6's), of the [Cout, 16, C] weights
+    (row 4 * phase + tap, 128 rows of 64 channels a box, 128-byte swizzle)
+    and one map of the output for each phase (r, s): out[:, 2i+r, 2j+s]
+    as [n, h, w, Cout], `offset` elements into out, 64-channel boxes of 16
+    rows x 8 columns, swizzled; the tiles (column tiles fastest, then the
+    phase, patch columns, patch rows, images) and the persistent grid over
+    them (one block an SM), the threads and shared memory (K6's); and the
+    A-operand arithmetic of the wgmma descriptors: tap (p, q) of phase
+    (r, s) reads halo cell (r + p, s + q), `tap_bytes[4 * phase + 2 p + q]`
+    bytes into the halo, consumer group g `group_bytes[g]` further, `sbo`
+    bytes between patch rows, `lbo` between the two 8-channel halves of a
+    k-step, the second 64-row block `mblock` bytes on. Raises ValueError on
+    what the kernel does not take."""
+    if min(n, h, w) < 1:
+        raise ValueError(f'K7: empty launch [{n},{h},{w},{c}]')
+    if not k7_takes(c, cout):
+        raise ValueError(f'K7 takes C % 64 == 0 and Cout % 128 == 0, got '
+                         f'C={c} Cout={cout}')
+    tiles = (cout // K7_BN, K7_PHASES, -(-w // K7_T), -(-h // K7_T), n)
+    ntiles = math.prod(tiles)
+    if ntiles > 2 ** 31 - 1:
+        raise ValueError(f'K7: {ntiles} tiles')
+    phase_map = dict(dims=(cout, w, h, n),
+                     strides=(4 * cout, 8 * w * cout, 8 * h * w * cout),
+                     box=(64, 8, K7_T, 1), swizzle=128)
+    return dict(x=dict(dims=(c, w, h, n),
+                       strides=(c * 2, w * c * 2, h * w * c * 2),
+                       box=(8, K7_HALO, K7_HALO, 1), swizzle=0),
+                w=dict(dims=(c, 16, cout), strides=(c * 2, 16 * c * 2),
+                       box=(64, 1, K7_BN), swizzle=128),
+                out=tuple(dict(phase_map, offset=(2 * w * r + s) * cout)
+                          for r in (0, 1) for s in (0, 1)),
+                tiles=tiles, grid=(min(ntiles, sms),), threads=K6_THREADS,
+                smem=K6_SMEM, chunks=c // 64, lbo=K6_GROUP_BYTES,
+                sbo=K7_HALO * 16, mblock=8 * K7_HALO * 16,
+                tap_bytes=tuple(16 * (K7_HALO * (r + p) + s + q)
+                                for r in (0, 1) for s in (0, 1)
+                                for p in (0, 1) for q in (0, 1)),
+                group_bytes=(0, 16 * 8))
+
+
+def k7_plan_args(plan: dict) -> tuple:
+    """What of the plan star_upsample_conv2x takes, as C arrays: the four
+    phase maps' element offsets into out, their byte strides (j, i, n;
+    the same for every phase) and the 16 tap offsets."""
+    strides = {m['strides'] for m in plan['out']}
+    if len(strides) != 1:
+        raise ValueError(f'K7: phase maps with strides {strides}')
+    return ((ctypes.c_longlong * 4)(*(m['offset'] for m in plan['out'])),
+            (ctypes.c_longlong * 3)(*strides.pop()),
+            (ctypes.c_int * 16)(*plan['tap_bytes']))
+
+
+def _fold(w: torch.Tensor, r: int, dim: int) -> torch.Tensor:
+    """The three taps of `w` along `dim` summed into phase r's two."""
+    return torch.stack([sum(w.select(dim, a) for a in taps)
+                        for taps in _FOLD[r]], dim)
 
 
 def phase_weights(weight: torch.Tensor) -> torch.Tensor:
     """OIHW [Cout, C, 3, 3] -> the phase tap sums K_rs [4, 2, 2, C, Cout]
-    in fp32 (phase 2r+s, taps (p, q)):
-    K_rs = einsum('ap,bq,abio->pqio', M_r, M_s, w_hwio)."""
+    in fp32 (phase 2r+s, taps (p, q)): the JAX package's
+    einsum('ap,bq,abio->pqio', M_r, M_s, w_hwio) as sums of slices, so that
+    no constant goes from the host to the card (a copy that would wait for
+    the card's queue to drain)."""
     w = weight.float().permute(2, 3, 1, 0)                # HWIO
-    ms = [torch.tensor(m, dtype=torch.float32, device=weight.device)
-          for m in _M]
-    return torch.stack([torch.einsum('ap,bq,abio->pqio', ms[r], ms[s], w)
+    return torch.stack([_fold(_fold(w, r, 0), s, 1)
                         for r in (0, 1) for s in (0, 1)])
 
 
@@ -115,9 +192,19 @@ def upsample_conv2x_plain(x, k_rs, bias, want_stats=False):
     return interleave2x2_plain(*_phase_convs(x, k_rs, bias), want_stats)
 
 
+def k7_weights(k_rs: torch.Tensor, device,
+               dtype=torch.bfloat16) -> torch.Tensor:
+    """K_rs [4, 2, 2, C, Cout] -> the kernel's K-major B operand [Cout, 16,
+    C] (bf16 for the kernel), row 4 * phase + 2 p + q."""
+    cout, c = k_rs.shape[-1], k_rs.shape[-2]
+    return k_rs.to(device=device, dtype=dtype).permute(
+        4, 0, 1, 2, 3).reshape(cout, 16, c).contiguous()
+
+
 def _launch_upsample(x, k_rs, bias, want_stats):
-    """Launch csrc/upsample_conv.cu. The [4, Cout, 2, 2, C] bf16 weight
-    layout it reads (K contiguous per phase) is made here on every call."""
+    """Launch csrc/upsample_conv_sm90.cu with the plan's phase maps, tap
+    offsets and grid. The [Cout, 16, C] bf16 weight layout it reads is made
+    here on every call."""
     global UPSAMPLE_LAUNCHES
     _build.refuse_grad('star_upsample_conv2x', x, k_rs, bias)
     n, h, w, c = x.shape
@@ -126,20 +213,20 @@ def _launch_upsample(x, k_rs, bias, want_stats):
             or not x.is_contiguous():
         raise ValueError('upsample kernel takes a contiguous bf16 CUDA x, '
                          f'got {x.dtype} on {x.device}')
-    if not k7_takes(c, cout) or tuple(k_rs.shape) != (4, 2, 2, c, cout):
-        raise ValueError(f'upsample kernel takes C % 32 == 0, Cout % 128 == '
-                         f'0 and K_rs [4, 2, 2, C, Cout], got C={c} K_rs '
-                         f'{tuple(k_rs.shape)}')
+    if tuple(k_rs.shape) != (4, 2, 2, c, cout):
+        raise ValueError(f'upsample kernel takes K_rs [4, 2, 2, C, Cout], '
+                         f'got {tuple(k_rs.shape)} for C={c}')
+    plan = upsample_conv2x_launch_plan(n, h, w, c, cout,
+                                       sms=_build.sm_count(x.device))
     dev = x.device
-    wk = k_rs.to(device=dev, dtype=torch.bfloat16).permute(
-        0, 4, 1, 2, 3).contiguous()
+    wk = k7_weights(k_rs, dev)
     bias32 = bias.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=dev)
     s, s2 = _stats_buffers(want_stats, n, cout, out)
     err = _build.lib().star_upsample_conv2x(
         x.data_ptr(), wk.data_ptr(), bias32.data_ptr(), out.data_ptr(),
         s.data_ptr(), s2.data_ptr(), n, h, w, c, cout, int(want_stats),
-        _build.stream_ptr(dev))
+        *k7_plan_args(plan), plan['grid'][0], _build.stream_ptr(dev))
     _build.check(err, 'star_upsample_conv2x')
     UPSAMPLE_LAUNCHES += 1
     return (out, (s, s2)) if want_stats else out

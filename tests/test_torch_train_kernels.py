@@ -9,7 +9,9 @@ replace (the training path):
   K4                 autograd through the frame attention against jax.grad
   K5                 autograd through a 4-stage threaded-statistics chain
                      against jax.grad of the same JAX chain, and a copy that
-                     drops the statistics cotangent, which must not pass
+                     drops the statistics cotangent, which must not pass;
+                     in fp32, and in bf16, where the port's backward runs
+                     its tap products as bf16 GEMMs (`_TapProduct`)
 
 Inputs are seeded numpy arrays handed to both sides. Tolerances are
 relative to the reference's largest magnitude, stated in each test.
@@ -151,13 +153,14 @@ def _port_chain(x, stages, drop_stats_cotangent=False):
     return y
 
 
-def test_fused_tconv_chain_grad_matches_jax_and_needs_the_stats_cotangent():
-    """K5 through a 4-stage threaded chain, fp32: gradients of x and of
-    every stage's GN scale/bias, kernel and bias against jax.grad of the
-    JAX chain within 1e-4. The same chain with the statistics treated as
-    constants (their cotangent dropped) loses the mean and variance terms
-    of each GroupNorm gradient and must miss by far more (> 1e-2)."""
+def _chain_vs_jax(dtype):
+    """The seeded chain inputs rounded to `dtype` on both sides: jax.grad
+    of the JAX chain (x, then each stage's GN scale/bias, kernel and bias,
+    as fp32 numpy) and a function giving the port's gradients of the same
+    leaves (`drop`: the statistics treated as constants)."""
     x, stages, ct = _chain_inputs()
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    jx = lambda a: jnp.asarray(a).astype(jdt)
 
     def jax_chain(x, stages):
         y, st = x, None
@@ -165,22 +168,66 @@ def test_fused_tconv_chain_grad_matches_jax_and_needs_the_stats_cotangent():
             y, st = jftc.fused_gn_silu_tconv3(
                 y, sc, bi, kern, cb, stats=st,
                 residual=x if i == 3 else None, want_stats=i < 3)
-        return jnp.sum(y * jnp.asarray(ct))
+        return jnp.sum(y.astype(jnp.float32) * jx(ct).astype(jnp.float32))
 
-    jstages = [tuple(map(jnp.asarray, s)) for s in stages]
-    want = jax.grad(jax_chain, argnums=(0, 1))(jnp.asarray(x), jstages)
-    want = [want[0]] + [g for st in want[1] for g in st]
+    jstages = [tuple(map(jx, s)) for s in stages]
+    want = jax.grad(jax_chain, argnums=(0, 1))(jx(x), jstages)
+    want = [np.asarray(g.astype(jnp.float32))
+            for g in [want[0]] + [g for st in want[1] for g in st]]
 
     def port_grads(drop):
-        leaves = [t(x)] + [t(a) for s in stages for a in s]
-        leaves = [a.requires_grad_() for a in leaves]
-        px, rest = leaves[0], leaves[1:]
-        ps = [tuple(rest[4 * i:4 * i + 4]) for i in range(4)]
-        y = _port_chain(px, ps, drop)
-        return torch.autograd.grad(y, leaves, t(ct))
+        leaves = [t(a).to(dtype).requires_grad_()
+                  for a in [x] + [a for s in stages for a in s]]
+        ps = [tuple(leaves[1 + 4 * i:5 + 4 * i]) for i in range(4)]
+        y = _port_chain(leaves[0], ps, drop)
+        return torch.autograd.grad(y, leaves, t(ct).to(dtype))
 
+    return want, port_grads
+
+
+def test_fused_tconv_chain_grad_matches_jax_and_needs_the_stats_cotangent():
+    """K5 through a 4-stage threaded chain, fp32: gradients of x and of
+    every stage's GN scale/bias, kernel and bias against jax.grad of the
+    JAX chain within 1e-4. The same chain with the statistics treated as
+    constants (their cotangent dropped) loses the mean and variance terms
+    of each GroupNorm gradient and must miss by far more (> 1e-2)."""
+    want, port_grads = _chain_vs_jax(torch.float32)
     for ours, ref in zip(port_grads(False), want):
         assert_close(ours, ref)
     worst = max(rel_err(ours, ref)
                 for ours, ref in zip(port_grads(True), want))
     assert worst > 1e-2, worst
+
+
+def _bf16_step(a) -> float:
+    """One bf16 step (ulp) at the largest magnitude of a."""
+    return 2.0 ** (np.frexp(float(np.abs(a).max()))[1] - 8)
+
+
+def test_fused_tconv_chain_grad_bf16_matches_jax_and_needs_the_stats_cotangent(
+        monkeypatch):
+    """The chain above in bf16: the same seeded values rounded to bf16 on
+    both sides, so that the port's backward multiplies them through
+    `_TapProduct` (bf16 operands, fp32 accumulation, each gradient rounded
+    once to bf16) and JAX through the VJP of its bf16 einsum. Every
+    gradient is within 8 bf16 steps of its reference's largest value
+    (measured: at most 5.5, the same with the port's earlier fp32
+    products; the forward's bf16 roundings differ in order). Dropping the
+    statistics cotangent misses by more than 50 steps (measured: 321)."""
+    want, port_grads = _chain_vs_jax(torch.bfloat16)
+    products = []
+    real = ftc._TapProduct.apply
+    monkeypatch.setattr(ftc._TapProduct, 'apply',
+                        lambda *a: products.append(1) or real(*a))
+    got = port_grads(False)
+    # each stage's forward (the plain version, on the CPU) and its
+    # backward's recompute go through the bf16 product
+    assert len(products) == 8
+    for ours, ref in zip(got, want):
+        assert ours.dtype == torch.bfloat16
+        err = float(np.abs(ours.float().numpy() - ref).max())
+        assert err <= 8 * _bf16_step(ref), (err, _bf16_step(ref))
+    worst = max(float(np.abs(ours.float().numpy() - ref).max())
+                / _bf16_step(ref)
+                for ours, ref in zip(port_grads(True), want))
+    assert worst > 50, worst

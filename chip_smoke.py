@@ -19,8 +19,12 @@
    causal VAE, on the card (bf16, kernels) against the same weights on the
    host (fp32, plain versions), and the small UNet+ControlNet's
    `loss_and_grads` likewise;
-3. builds the full-width models with seeded random bf16 weights on the card
-   and runs STARPipeline.enhance_a_video on 8 frames of 180x320 -> 720x1280,
+3. builds the full-width models with seeded random bf16 weights on the card,
+   writes them as reference-named state dicts (the inverse of the port's
+   name maps), converts those files with star_tpu_torch.convert.cli, loads
+   the result with load_star_models and holds every tensor bit for bit to
+   the original; then runs the loaded models through inference_sr's job
+   loop on 8 frames of 180x320 -> 720x1280 (in-memory frames and saver),
    with every kernel's launch count reset just before and read just after;
 4. times one CFG UNet+ControlNet step at the bench shape (8 frames on the
    90x160 latent grid, cfg_pair, bf16);
@@ -32,10 +36,12 @@
    same injected t and noise, the launch counts reset before and read
    after each step;
 6. frees the I2VGen models, builds the CogVideoX-5B SR models (42-layer
-   DiT, T5-XXL, causal VAE) with seeded random bf16 weights on the card
-   and runs CogVideoSRPipeline.enhance_a_video on 25 frames of 480x720 (50
-   DiT calls), the launch counts reset just before and read just after;
-   then times one DiT CFG step at tools/bench_cog.py's shape;
+   DiT, T5-XXL, causal VAE) with seeded random bf16 weights on the card,
+   carries each through the inverse of its name map and back through
+   convert_state_dict on the card (bit for bit), and runs the converted
+   models through sample_sr's job loop on 25 frames of 480x720 (50 DiT
+   calls), the launch counts reset just before and read just after; then
+   times one DiT CFG step at tools/bench_cog.py's shape;
 7. prints one JSON line of kernel results, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -1328,16 +1334,147 @@ def check_small_train(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phases 3 and 6: reference checkpoints through the port's convert/
+
+
+def to_reference(name_map, state_dict) -> dict:
+    """A port state dict -> the reference-named state dict the name map
+    reads: its renames, and the inverse of its few reshapes."""
+    import dataclasses
+    import numpy as np
+    from star_tpu_torch.convert import layout
+    from star_tpu_torch.convert.tower_maps import HeadPerm
+    out = {}
+    for key, (src, fn) in name_map.items():
+        t = state_dict[key]
+        if fn is layout.conv3d_t11_kernel:   # [kt, 1, in, out] -> Conv3d
+            t = t[:, 0].permute(2, 1, 0)[..., None, None]
+        elif fn is layout.conv1d_as_linear:
+            t = t[..., None]
+        elif isinstance(fn, HeadPerm):
+            t = dataclasses.replace(
+                fn, perm=tuple(int(i) for i in np.argsort(fn.perm)))(t)
+        elif fn not in (None, layout.as_vector):
+            raise ValueError(f'{key}: no inverse for {fn}')
+        out[src] = t
+    return out
+
+
+def assert_same_weights(what: str, got, want) -> None:
+    """Every tensor of module `got` equals module `want`'s, bit for bit,
+    in the same dtype."""
+    import torch
+    a, b = got.state_dict(), want.state_dict()
+    assert set(a) == set(b), f'{what}: keys differ'
+    bad = [k for k in b if a[k].dtype != b[k].dtype
+           or not torch.equal(a[k], b[k])]
+    assert not bad, f'{what}: {len(bad)} tensors differ, first {bad[:3]}'
+
+
+def convert_through_files(models, dev):
+    """phase 3: the I2VGen towers written as reference-named bf16 state
+    dicts, converted by the port's convert.cli, loaded by load_star_models
+    and held bit for bit to `models`; returns the loaded models and the
+    seconds and GB of each step. The files go in a directory under build/
+    that is deleted afterwards."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from star_tpu_torch.convert import cli, load
+    os.makedirs('build', exist_ok=True)
+    root = tempfile.mkdtemp(prefix='convert_', dir='build')
+    rec = dict(write_s=0.0, convert_s=0.0)
+    try:
+        ref_dir = os.path.join(root, 'reference')
+        os.makedirs(ref_dir)
+        for kind, attr in (('unet', 'unet'), ('vae', 'vae'), ('clip', 'text')):
+            _, name_map = load.tower(kind)
+            src = os.path.join(ref_dir, f'{kind}.pt')
+            t0 = time.perf_counter()
+            torch.save(to_reference(name_map,
+                                    getattr(models, attr).state_dict()), src)
+            t1 = time.perf_counter()
+            cli.main([kind, src, os.path.join(root, f'{kind}.pt')])
+            rec['write_s'] += t1 - t0
+            rec['convert_s'] += time.perf_counter() - t1
+        size = lambda d: sum(os.path.getsize(os.path.join(d, f'{k}.pt'))
+                             for k in ('unet', 'vae', 'clip')) / 1e9
+        rec['gb'], rec['reference_gb'] = size(root), size(ref_dir)
+        t0 = time.perf_counter()
+        loaded = load.load_star_models(root, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        rec['load_s'] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root)
+    for attr in ('unet', 'vae', 'text'):
+        assert_same_weights(attr, getattr(loaded, attr), getattr(models, attr))
+    log(f'I2VGen towers through convert.cli: reference files '
+        f'{rec["reference_gb"]:.3f} GB written in {rec["write_s"]:.2f} s, '
+        f'converted to {rec["gb"]:.3f} GB in {rec["convert_s"]:.2f} s, '
+        f'loaded onto the card in {rec["load_s"]:.2f} s; every tensor bit '
+        'for bit')
+    return loaded, rec
+
+
+def convert_in_memory(models, dev) -> dict:
+    """phase 6: each CogVideoX tower's state dict through the inverse of
+    its name map and back through convert_state_dict on the card, one
+    tower at a time; the converted module replaces the original in
+    `models` (held bit for bit to it), and the original and its reference
+    copy are freed. Returns the seconds of each tower."""
+    import torch
+    from star_tpu_torch.convert import convert_state_dict, load
+    secs = {}
+    for kind, attr in (('dit', 'dit'), ('t5', 'text'),
+                       ('causal_vae', 'vae')):
+        build, name_map = load.tower(kind)
+        original = getattr(models, attr)
+        ref = to_reference(name_map, original.state_dict())
+        t0 = time.perf_counter()
+        sd = convert_state_dict(ref, name_map, load.on_meta(build))
+        model = load.module_from_state_dict(build, sd, torch.bfloat16, dev)
+        torch.cuda.synchronize()
+        secs[kind] = time.perf_counter() - t0
+        assert_same_weights(kind, model, original)
+        setattr(models, attr, model)
+        del original, ref, sd, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    log('Cog towers through convert_state_dict on the card, bit for bit: '
+        + ', '.join(f'{k} {v:.2f} s' for k, v in secs.items()))
+    return secs
+
+
+class MemoryVideos:
+    """The CLIs' job loops' loader and saver on in-memory frames (the
+    card's machine has no video codec): load(source) -> (frames, fps),
+    save(frames, name, fps) -> name."""
+
+    def __init__(self, **videos):
+        self.videos, self.saved = videos, {}
+
+    def load(self, source):
+        return self.videos[source], 16.0
+
+    def save(self, frames, name, fps):
+        self.saved[name] = frames
+        return name
+
+
+# --------------------------------------------------------------------------
 # phases 3-4: the port's main path at full width
 
 
 def run_pipeline(dev) -> dict:
-    """Full-width random bf16 models, enhance_a_video on 8 frames of
-    180x320 -> 720x1280 with the default sampler (the fast 4+11 ladder);
-    returns launches, UNet calls, stage seconds and checks."""
+    """Full-width random bf16 models through the port's convert.cli and
+    load_star_models, then inference_sr's job loop on 8 frames of 180x320
+    -> 720x1280 with the default sampler (the fast 4+11 ladder); returns
+    launches, UNet calls, stage seconds, conversion seconds and checks."""
     import numpy as np
     import torch
     from star_tpu_torch import ops
+    from star_tpu_torch.cli import inference_sr
     from star_tpu_torch.config import PipelineConfig
     from star_tpu_torch.pipeline import build_pipeline, init_random_models
 
@@ -1351,11 +1488,14 @@ def run_pipeline(dev) -> dict:
                 for k in ('unet', 'vae', 'text')}
     log(f'full-width random models on the card in '
         f'{time.perf_counter() - t0:.1f} s: {n_params}')
+    models, conversion = convert_through_files(models, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     pipe = build_pipeline(models, PipelineConfig(),
                           allow_hash_tokenizer=True, device=dev)
     pipe.time_stages = True
-    frames = np.random.RandomState(0).uniform(
-        0, 255, (8, 180, 320, 3)).astype(np.uint8)
+    videos = MemoryVideos(clip=np.random.RandomState(0).uniform(
+        0, 255, (8, 180, 320, 3)).astype(np.uint8))
 
     torch.cuda.reset_peak_memory_stats(dev)
     unet_calls = []
@@ -1364,13 +1504,17 @@ def run_pipeline(dev) -> dict:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with k7_shapes() as k7_seen:
-        out = pipe.enhance_a_video(frames, 'a good video', seed=666)
+        saved = inference_sr.run_jobs(
+            pipe, [('clip', 'a good video', 'clip.mp4')], videos.load,
+            videos.save, seed=666)
     clip_s = time.perf_counter() - t0
+    assert saved == ['clip.mp4'], saved
+    out = videos.saved['clip.mp4']
     launches = ops.launch_counts()
     hook.remove()
     latents = pipe.last_latents
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    log(f'enhance_a_video 8x180x320 -> {out.shape} {out.dtype} in '
+    log(f'inference_sr job loop 8x180x320 -> {out.shape} {out.dtype} in '
         f'{clip_s:.2f} s ({len(unet_calls)} UNet calls); stages '
         + ', '.join(f'{k} {v:.3f} s' for k, v in pipe.stage_seconds.items())
         + f'; peak memory {peak_gb:.1f} GB; launches {launches}')
@@ -1400,7 +1544,7 @@ def run_pipeline(dev) -> dict:
     return dict(models=models, pipe=pipe, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), unet_calls=len(unet_calls),
                 peak_gb=peak_gb, out_mean=float(out.mean()),
-                out_std=float(out.std()))
+                out_std=float(out.std()), conversion=conversion)
 
 
 def time_cfg_step(dev, models, profile: str | None) -> dict:
@@ -1773,13 +1917,15 @@ def run_train(dev, models, profile: str | None = None) -> dict:
 
 def run_cog(dev) -> dict:
     """The published CogVideoX-5B SR models (DiT 42x3072, T5-XXL, causal
-    VAE 128) with seeded random bf16 weights made on the card;
-    CogVideoSRPipeline.enhance_a_video on 25 synthetic frames of 480x720
-    (7 latent frames of 60x90, 9676 tokens carried as 9680) with the
-    default sampler (50 VPSDE-DPM++(2M) steps, DynamicCFG 6 / 5)."""
+    VAE 128) with seeded random bf16 weights made on the card and carried
+    through the port's name maps and back (convert_in_memory);
+    sample_sr's job loop on 25 synthetic frames of 480x720 (7 latent
+    frames of 60x90, 9676 tokens carried as 9680) with the default sampler
+    (50 VPSDE-DPM++(2M) steps, DynamicCFG 6 / 5)."""
     import numpy as np
     import torch
     from star_tpu_torch import ops
+    from star_tpu_torch.cli import sample_sr
     from star_tpu_torch.pipeline import (build_cog_pipeline,
                                          init_random_cog_models)
 
@@ -1792,10 +1938,13 @@ def run_cog(dev) -> dict:
     log(f'CogVideoX models (random bf16) on the card in {init_s:.1f} s: '
         f'{n_params}; memory allocated '
         f'{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB')
+    convert_s = convert_in_memory(models, dev)
+    log(f'memory allocated after the conversion '
+        f'{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB')
     pipe = build_cog_pipeline(models, allow_hash_tokenizer=True, device=dev,
                               time_stages=True)
-    frames = np.random.RandomState(0).uniform(
-        0, 255, (25, 480, 720, 3)).astype(np.uint8)
+    videos = MemoryVideos(clip=np.random.RandomState(0).uniform(
+        0, 255, (25, 480, 720, 3)).astype(np.uint8))
 
     torch.cuda.reset_peak_memory_stats(dev)
     dit_calls = []
@@ -1803,13 +1952,16 @@ def run_cog(dev) -> dict:
         lambda *_: dit_calls.append(1))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = pipe.enhance_a_video(frames, 'a good video', seed=42)
+    saved = sample_sr.run_jobs(pipe, [('clip', 'a good video', 'clip.mp4')],
+                               videos.load, videos.save, seed=42)
     clip_s = time.perf_counter() - t0
+    assert saved == ['clip.mp4'], saved
+    out = videos.saved['clip.mp4']
     launches = ops.launch_counts()
     hook.remove()
     latents = pipe.last_latents
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    log(f'Cog enhance_a_video 25x480x720 -> {out.shape} {out.dtype} in '
+    log(f'Cog sample_sr job loop 25x480x720 -> {out.shape} {out.dtype} in '
         f'{clip_s:.2f} s ({len(dit_calls)} DiT calls); stages '
         + ', '.join(f'{k} {v:.3f} s' for k, v in pipe.stage_seconds.items())
         + f'; peak memory {peak_gb:.1f} GB; launches {launches}')
@@ -1824,7 +1976,7 @@ def run_cog(dev) -> dict:
     return dict(models=models, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), dit_calls=len(dit_calls),
                 init_s=init_s, peak_gb=peak_gb, out_mean=float(out.mean()),
-                out_std=float(out.std()))
+                out_std=float(out.std()), convert_s=convert_s)
 
 
 def time_dit_step(dev, models, profile: str | None) -> dict:
@@ -1926,6 +2078,7 @@ def main() -> int:
         train_profile=train.get('profile'), cog_clip_s=cog['clip_s'],
         cog_dit_calls=cog['dit_calls'], cog_stages=cog['stages'],
         cog_init_s=cog['init_s'], cog_peak_gb=cog['peak_gb'],
+        conversion=run['conversion'], cog_convert_s=cog['convert_s'],
         cog_out_mean=cog['out_mean'], cog_out_std=cog['out_std'],
         dit_step_ms=dit_step['ms'], dit_profile=dit_step.get('profile'))))
     print(json.dumps({'kernels': list(results.values())}))

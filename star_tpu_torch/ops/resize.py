@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -48,3 +50,15 @@ def pad_to_fit(h: int, w: int,
         w1 = 0
         w2 = int(w // 64 * 64) + 64 - w
     return (w1, w2, h1, h2)
+
+
+def adjust_resolution(h: int, w: int, up_scale: int) -> tuple[int, int]:
+    """Target output resolution given the 720p floor / 1280*2048 area ceiling
+    (inference_utils.py:42-54)."""
+    if h * up_scale < 720:
+        up_s = 720 / h
+        return int(up_s * h // 2 * 2), int(up_s * w // 2 * 2)
+    if h * w * up_scale * up_scale > 1280 * 2048:
+        up_s = math.sqrt(1280 * 2048 / (h * w))
+        return int(up_s * h // 2 * 2), int(up_s * w // 2 * 2)
+    return int(up_scale * h // 2 * 2), int(up_scale * w // 2 * 2)

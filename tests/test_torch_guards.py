@@ -1,8 +1,12 @@
 """Guards of the port's contract:
 
-  * no module of star_tpu_torch/, and not chip_smoke.py, imports jax, flax
-    or star_tpu (AST scan);
-  * the entry points raise without a CUDA card unless given device="cpu";
+  * no module of star_tpu_torch/, and not chip_smoke.py, imports jax, flax,
+    orbax, star_tpu or tools (AST scan), and the golden tests of the port's
+    own conversion (tests/test_torch_convert.py, and the sample_sr golden)
+    import nothing of star_tpu or jax either;
+  * the entry points raise without a CUDA card unless given device="cpu":
+    the random-weight models, the pipelines, load_star_models /
+    load_cog_models, setup_seed and both serving CLIs' main;
   * a CUDA tensor never reaches a kernel's plain version: each wrapper
     launches (here a counting stand-in for the launcher) or raises;
   * under autograd the differentiable kernels launch forward and backward
@@ -22,7 +26,7 @@ import pytest
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), '..')
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'star_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'star_tpu', 'tools')
 
 
 def _port_sources():
@@ -51,11 +55,14 @@ def test_port_imports_nothing_of_jax_or_star_tpu():
     assert not offenders, offenders
 
 
-def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
+    from star_tpu_torch.cli import inference_sr, sample_sr
     from star_tpu_torch.config import PipelineConfig
+    from star_tpu_torch.convert.load import load_cog_models, load_star_models
     from star_tpu_torch.pipeline import (ModelBundle, STARPipeline,
                                          init_random_models)
     from star_tpu_torch.utils.device import resolve_device
+    from star_tpu_torch.utils.seed import setup_seed
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         resolve_device()
@@ -66,6 +73,84 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         STARPipeline(bundle, PipelineConfig())
     assert STARPipeline(bundle, PipelineConfig(),
                         device='cpu').device.type == 'cpu'
+    # the loaders and the CLIs refuse before they read a file or build a
+    # model: the paths here do not exist
+    for load in (load_star_models, load_cog_models):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            load(str(tmp_path))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        setup_seed(0)
+    assert setup_seed(0, device='cpu').device.type == 'cpu'
+    video = str(tmp_path / 'in.mp4')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        inference_sr.main(['--input_path', video, '--allow_random_weights'])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        sample_sr.main(['--input_path', video, '--allow_random_weights'])
+    with pytest.raises(FileNotFoundError, match='in.mp4'):
+        inference_sr.main(['--input_path', video, '--allow_random_weights',
+                           '--device', 'cpu'])
+
+
+def test_clis_start_and_answer_help_without_jax():
+    """convert.cli and both serving CLIs import and print their help in a
+    process with no jax (tests/conftest.py imports it into this one)."""
+    import subprocess
+    import sys
+    code = (
+        'import runpy, sys\n'
+        'for m in ("star_tpu_torch.convert.cli", '
+        '"star_tpu_torch.cli.inference_sr", "star_tpu_torch.cli.sample_sr"):\n'
+        '    sys.argv = [m, "--help"]\n'
+        '    try:\n'
+        '        runpy.run_module(m, run_name="__main__")\n'
+        '    except SystemExit as e:\n'
+        '        assert e.code == 0, (m, e.code)\n'
+        'bad = sorted(k for k in sys.modules if k.split(".")[0] in '
+        + repr(FORBIDDEN) + ')\n'
+        'assert not bad, bad\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    for flag in ('--merge-lora', '--prompt_file', '--sampling_num_frames',
+                 '--device'):
+        assert flag in out.stdout, flag
+
+
+def _imports(nodes):
+    """The top-level package of every import under the AST nodes."""
+    for node in nodes:
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.Import):
+                yield from (a.name.split('.')[0] for a in sub.names)
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+                yield (sub.module or '').split('.')[0]
+
+
+def test_golden_cases_of_the_port_import_nothing_of_star_tpu():
+    """The goldens reach the port through its own convert/: the module
+    tests/test_torch_convert.py imports nothing of star_tpu or jax at its
+    top level, nor does any of its golden tests (star_tpu is imported
+    only inside the tests that compare with it), and likewise the
+    sample_sr golden of tests/test_torch_goldens.py."""
+    cases = {'test_torch_convert.py': 'golden', 'test_torch_goldens.py':
+             'test_sample_sr_golden'}
+    found = 0
+    for name, marker in cases.items():
+        path = os.path.join(ROOT, 'tests', name)
+        tree = ast.parse(open(path).read(), path)
+        goldens = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                   and n.name.startswith('test_') and marker in n.name]
+        found += len(goldens)
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        helpers = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                   and n.name.startswith('_')]
+        nodes = goldens + helpers
+        if name == 'test_torch_convert.py':    # and its top-level imports
+            nodes += top
+        bad = [p for p in _imports(nodes) if p in ('star_tpu', 'jax')]
+        assert not bad, f'{name}: {bad}'
+    assert found == 7, found
 
 
 class FakeCuda(torch.Tensor):

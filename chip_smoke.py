@@ -12,7 +12,8 @@
    add + LayerNorm; K1 also at the CogVideoX DiT's 48 heads, 9680
    tokens, dead key tail and prescaled q, and at the edges of its tiles;
    K2 `with_l` and K3 also at the DiT's 9680 tokens and 48 heads; K10 and
-   K11 at C = 320, 640, 1280 and 3072) against its plain PyTorch
+   K11 at C = 320, 640, 1280 and 3072; K1, K9 and K10 also at the
+   text-to-video DiT's 17776 tokens) against its plain PyTorch
    version at the shapes the main paths give it, and times kernel, plain
    version and one PyTorch library call with CUDA events; then runs a
    small-width UNet+ControlNet and VAE, and a small CogVideoX DiT and
@@ -26,6 +27,12 @@
    the original; then runs the loaded models through inference_sr's job
    loop on 8 frames of 180x320 -> 720x1280 (in-memory frames and saver),
    with every kernel's launch count reset just before and read just after;
+3b. serves: the same pipeline behind the port's daemon (cli/serve.py's
+   serve_loop in a thread, cli/web.py's front-end on a loopback port):
+   warms the 8x180x320 bucket, enqueues two clips and one request whose
+   input does not exist over HTTP, reads the three done files back over
+   HTTP and shuts the daemon down; each request's launches are reset just
+   before its clip and read just after, and must be exact;
 4. times one CFG UNet+ControlNet step at the bench shape (8 frames on the
    90x160 latent grid, cfg_pair, bf16);
 5. trains: the same full-width UNet+ControlNet as the compute copy, fp32
@@ -42,7 +49,13 @@
    models through sample_sr's job loop on 25 frames of 480x720 (50 DiT
    calls), the launch counts reset just before and read just after; then
    times one DiT CFG step at tools/bench_cog.py's shape;
-7. prints one JSON line of kernel results, the card line, and as the last
+7. frees the SR DiT, builds the stock CogVideoX-5B DiT (liem=False, 16
+   input channels) with seeded random bf16 weights on the card beside
+   phase 6's T5-XXL and causal VAE, runs sample_t2v's job loop on one
+   prompt with the CLI's defaults (49 frames of 480x720: 13 latent frames,
+   17776 tokens; 50 DiT calls), the launch counts reset just before and
+   read just after, and times one stock-DiT CFG step;
+8. prints one JSON line of kernel results, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line is printed. Without a CUDA
@@ -77,11 +90,13 @@ LN_PER_CFG_STEP = {'fused_ln': 25, 'fused_resid_ln': 96}
 LN_PER_TRAIN_STEP = {'fused_ln': 50, 'fused_resid_ln': 192}
 LN_PER_TEXT_ENCODE = 47
 LN_PER_DIT_STEP = {'fused_ln': 42 * 3 + 2}
-# the CogVideoX SR clip's kernels, with their launches in one clip (50 DiT
-# calls of 42 layers: K9 on q and on k, K1 once, K10 three times; and the
-# two final norms)
-COG_PATH_LAUNCHES = {'qk_ln_rope': 4200, 'flash_packed': 2100,
-                     'fused_ln': 50 * LN_PER_DIT_STEP['fused_ln']}
+# the kernels of one DiT call, SR or stock (42 layers: K9 on q and on k,
+# K1 once, K10 three times; and the two final norms)
+LAUNCHES_PER_DIT_STEP = {'qk_ln_rope': 84, 'flash_packed': 42,
+                         **LN_PER_DIT_STEP}
+# the CogVideoX clips' kernels, SR and text-to-video, with their launches
+# in one clip of 50 DiT calls (T5 and the causal VAE launch none)
+COG_PATH_LAUNCHES = {k: 50 * v for k, v in LAUNCHES_PER_DIT_STEP.items()}
 # K2 at d=512 in one I2VGen clip: the VAE encode of the 8 frames in one
 # call; the decode of their two 3-frame windows folded into one batch, then
 # of the last 2 frames (the train step's frequency loss decodes the same)
@@ -844,15 +859,15 @@ def check_train_kernels(dev, randn, record, results) -> None:
     torch.cuda.synchronize()
 
 
-def packed_plain_chunked(q, k, v, heads: int, kv_valid: int,
-                         prescaled: bool = True, return_lse: bool = False):
+def packed_plain_chunked(q, k, v, heads: int, kv_valid: int | None,
+                         prescaled: bool = True, return_lse: bool = False,
+                         head_chunk: int = 8):
     """flash_attention_packed_plain (of a prescaled q by default), one batch
-    row and 8 heads at a time: the fp32 logits of all 48 heads of one row
-    at 9680 tokens would take 18 GB. With `return_lse` also the lse
-    [B, heads, Sq]."""
+    row and `head_chunk` heads at a time: the fp32 logits of all 48 heads
+    of one row at 9680 tokens would take 18 GB. With `return_lse` also the
+    lse [B, heads, Sq]."""
     import torch
     from star_tpu_torch.ops import flash_attention as fa
-    head_chunk = 8
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0], heads, q.shape[1], device=q.device)
     for bi in range(q.shape[0]):
@@ -868,21 +883,29 @@ def packed_plain_chunked(q, k, v, heads: int, kv_valid: int,
     return (out, lse) if return_lse else out
 
 
-def check_dit_kernels(dev, g, randn, record, results) -> None:
-    """K9 (qk-LayerNorm + RoPE) and K1 at the CogVideoX DiT's attention
-    shape: q/k/v [2, 9680, 3072], 48 heads, the DiT's RoPE tables (identity
-    rows 0-225 and 9676-9679, 3D RoPE between), K9 on q with the softmax
-    scale * log2(e) folded in and on k with 1; then K1 prescaled with
-    kv_valid=9676 on K9's outputs."""
+# the DiT's attention shapes: (what, latent frames, tokens carried, live
+# tokens or None, head chunk of the plain K1): the SR clip's 7 latent
+# frames of 30x45 patches (9676 tokens carried as 9680) and the
+# text-to-video clip's 13 (17776 tokens, a multiple of 16: no dead tail)
+DIT_SHAPES = (('sr', 7, 9680, 9676, 8), ('t2v', 13, 17776, None, 4))
+
+
+def dit_attention_case(dev, g, randn, t_lat, s, valid, head_chunk):
+    """K9 on q (the softmax scale * log2(e) folded in) and on k, then K1
+    prescaled on K9's outputs (with kv_valid where the stream has a dead
+    tail), at q/k/v [2, s, 3072], 48 heads, with the DiT's RoPE tables for
+    `t_lat` latent frames of 30x45 patches (identity rows for the text and
+    the tail, 3D RoPE between). Returns the (agree, ms, plain ms, FLOPs,
+    bytes, library ms) of K9 and of K1."""
     import torch
     import torch.nn.functional as F
     from star_tpu_torch.models.dit.dit import rope_tables
     from star_tpu_torch.ops import flash_attention as fa, qk_ln_rope as qr
 
-    b, s, heads, valid = 2, 9680, 48, 9676
+    b, heads = 2, 48
     c = heads * 64
     cos, sin = (torch.from_numpy(a).to(dev)
-                for a in rope_tables(226, 7, 30, 45, s, 64))
+                for a in rope_tables(226, t_lat, 30, 45, s, 64))
     fold_q = qr.LOG2E / 8.0
     qkv = []
     for what, fold in (('q', fold_q), ('k', 1.0)):
@@ -903,37 +926,59 @@ def check_dit_kernels(dev, g, randn, record, results) -> None:
                      reps=20)
     # bytes: x read and the output written once (bf16), the [S, 64] fp32
     # tables and the [64] scale and bias read once
-    record('qk_ln_rope', 'cuda', 'star_tpu_torch/csrc/qk_ln_rope.cu',
-           'star_tpu/ops/qk_ln_rope.py:140', agree, ms, plain_ms,
-           10.0 * b * s * c, 2 * 2 * x.numel() + 2 * 4 * cos.numel() + 4 * 128,
-           lib_ms, [b, s, c])
-    results['qk_ln_rope']['library'] = (
-        'partial: F.layer_norm over the [B, S, H, 64] view, no rotation')
+    k9 = (agree, ms, plain_ms, 10.0 * b * s * c,
+          2 * 2 * x.numel() + 2 * 4 * cos.numel() + 4 * 128, lib_ms)
     del x, x4, out
     torch.cuda.synchronize()
 
     q, k = qkv
     v = randn(b, s, c)
+    live = valid or s
     out = fa.flash_attention_packed(q, k, v, heads, kv_valid=valid,
                                     prescaled=True)
     agree = agrees(f'K1 DiT [{b},{s},{c}] 48 heads kv_valid={valid} '
-                   'prescaled', [(out, packed_plain_chunked(q, k, v, heads,
-                                                           valid))])
+                   'prescaled', [(out, packed_plain_chunked(
+                       q, k, v, heads, valid, head_chunk=head_chunk))])
     del out
     ms = cuda_ms(lambda: fa.flash_attention_packed(
         q, k, v, heads, kv_valid=valid, prescaled=True), reps=5)
-    plain_ms = cuda_ms(lambda: packed_plain_chunked(q, k, v, heads, valid),
-                       reps=1)
-    to4 = lambda t: t[:, :valid].view(b, valid, heads, 64).transpose(1, 2)
+    plain_ms = cuda_ms(lambda: packed_plain_chunked(
+        q, k, v, heads, valid, head_chunk=head_chunk), reps=1)
+    to4 = lambda t: t[:, :live].view(b, live, heads, 64).transpose(1, 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         to4(q), to4(k), to4(v), scale=fa.LN2), reps=5)
-    results['flash_packed']['dit'] = sub_record(
-        [b, s, c], agree, ms, plain_ms, 4.0 * b * heads * s * valid * 64,
-        2 * (3 * b * s * c + b * s * c) - 2 * 2 * b * (s - valid) * c,
-        lib_ms, heads=heads, kv_valid=valid, prescaled=True,
-        library='F.scaled_dot_product_attention on [2, 9676, 48, 64]')
+    k1 = (agree, ms, plain_ms, 4.0 * b * heads * s * live * 64,
+          2 * (3 * b * s * c + b * s * c) - 2 * 2 * b * (s - live) * c,
+          lib_ms)
     del q, k, v, qkv
     torch.cuda.synchronize()
+    return k9, k1
+
+
+def check_dit_kernels(dev, g, randn, record, results) -> None:
+    """K9 (qk-LayerNorm + RoPE) and K1 at the CogVideoX DiT's attention
+    shapes (DIT_SHAPES): the SR clip's [2, 9680, 3072] (kv_valid 9676) is
+    each kernel's DiT record, the text-to-video clip's [2, 17776, 3072]
+    (no dead tail) a sub-record under it."""
+    for what, t_lat, s, valid, head_chunk in DIT_SHAPES:
+        k9, k1 = dit_attention_case(dev, g, randn, t_lat, s, valid,
+                                    head_chunk)
+        shape = [2, s, 3072]
+        if what == 'sr':
+            record('qk_ln_rope', 'cuda', 'star_tpu_torch/csrc/qk_ln_rope.cu',
+                   'star_tpu/ops/qk_ln_rope.py:140', k9[0], *k9[1:], shape)
+            results['qk_ln_rope']['library'] = (
+                'partial: F.layer_norm over the [B, S, H, 64] view, no '
+                'rotation')
+            key = 'dit'
+        else:
+            results['qk_ln_rope'][what] = sub_record(
+                shape, k9[0], *k9[1:], t_lat=t_lat)
+            key = what
+        live = valid or s
+        results['flash_packed'][key] = sub_record(
+            shape, k1[0], *k1[1:], heads=48, kv_valid=valid, prescaled=True,
+            library=f'F.scaled_dot_product_attention on [2, {live}, 48, 64]')
 
 
 def ln_inputs(shape, gated: bool, resid: bool, dev, g, param_dtype=None):
@@ -1015,10 +1060,11 @@ def check_ln_kernels(dev, g, record, results) -> None:
     results['fused_ln'].update(
         mode='LIEM-gated (temporal norm1)',
         library='partial: F.layer_norm without the gate')
-    dit = case((2, 9680, 3072), False, False, True)
-    results['fused_ln']['dit'] = sub_record(
-        [2, 9680, 3072], dit[0], *dit[1:], mode='plain (DiT LayerNorms)',
-        library='F.layer_norm: the same function')
+    for key, s in (('dit', 9680), ('t2v', 17776)):
+        dit = case((2, s, 3072), False, False, True)
+        results['fused_ln'][key] = sub_record(
+            [2, s, 3072], dit[0], *dit[1:], mode='plain (DiT LayerNorms)',
+            library='F.layer_norm: the same function')
     k11 = case((2, 8, 14400, 320), True, True, True)
     record('fused_resid_ln', 'cuda', 'star_tpu_torch/csrc/fused_ln.cu',
            'tools/negative_results/stream_fuse.py:161', k11[0], *k11[1:],
@@ -1466,6 +1512,22 @@ class MemoryVideos:
 # phases 3-4: the port's main path at full width
 
 
+def clip_launches(unet_calls: int, text_encodes: int) -> dict:
+    """The exact launches of K2 d=512, K5-K7, K10 and K11 in one I2VGen
+    clip of 8 frames of 180x320 with `unet_calls` UNet calls and
+    `text_encodes` CLIP encodes: two in a fresh pipeline (the prompt and
+    the negative one), none for a prompt in the pipeline's text cache."""
+    n = unet_calls
+    return {
+        'fused_ln': n * LN_PER_CFG_STEP['fused_ln']
+        + text_encodes * LN_PER_TEXT_ENCODE,
+        'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln'],
+        'flash_d512': D512_PER_CLIP,
+        'fused_gn_silu_tconv3': n * K5_PER_CFG_STEP + 2 * K5_PER_DECODE,
+        'conv3x3': K6_PER_ENCODE + 2 * K6_PER_DECODE,
+        'upsample_conv2x': K7_PER_CLIP}
+
+
 def run_pipeline(dev) -> dict:
     """Full-width random bf16 models through the port's convert.cli and
     load_star_models, then inference_sr's job loop on 8 frames of 180x320
@@ -1532,19 +1594,148 @@ def run_pipeline(dev) -> dict:
         f'{K7_PER_CLIP}), '
         f'interleave2x2 {launches["interleave2x2"]} (expected 0)')
     # K10/K11: every UNet call, and CLIP on the prompt and the negative one
-    n = len(unet_calls)
-    assert_launches('clip', launches, {
-        'fused_ln': n * LN_PER_CFG_STEP['fused_ln'] + 2 * LN_PER_TEXT_ENCODE,
-        'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln'],
-        'flash_d512': D512_PER_CLIP,
-        'fused_gn_silu_tconv3': n * K5_PER_CFG_STEP + 2 * K5_PER_DECODE,
-        'conv3x3': K6_PER_ENCODE + 2 * K6_PER_DECODE,
-        'upsample_conv2x': K7_PER_CLIP})
+    assert_launches('clip', launches, clip_launches(len(unet_calls), 2))
     assert k7_seen == K7_BY_SHAPE, f'clip: K7 launches by shape {k7_seen}'
     return dict(models=models, pipe=pipe, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), unet_calls=len(unet_calls),
                 peak_gb=peak_gb, out_mean=float(out.mean()),
                 out_std=float(out.std()), conversion=conversion)
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the resident daemon at full width
+
+
+def http_json(url: str, body: dict | None = None) -> tuple[int, dict]:
+    """(status, JSON body) of a GET, or of a POST of `body` as JSON, to the
+    web front-end on this machine's loopback address."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={'Content-Type': 'application/json'})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def run_serve(dev, pipe, clip_counts: dict) -> dict:
+    """Phase 3's pipeline behind the port's daemon: web.serve_web on a
+    free loopback port; pipe.warm(8, 180, 320); three requests enqueued
+    over HTTP (two 8x180x320 clips held in memory, one whose input does not
+    exist); serve.serve_loop in a thread with an in-memory loader and
+    saver; the done files read back over HTTP, then the shutdown sentinel.
+    Each request's launches are reset by the loader, just before its clip,
+    and read by the saver, just after; they must equal the clip's
+    (`clip_counts`, two CLIP encodes) with K10 adjusted by 47 a CLIP encode
+    (the first prompt is in the text cache, the second is not)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.cli import serve, web
+
+    os.makedirs('build', exist_ok=True)
+    root = tempfile.mkdtemp(prefix='serve_', dir='build')
+    qdir, save_dir = os.path.join(root, 'q'), os.path.join(root, 'out')
+    srv = web.serve_web(qdir, save_dir, os.path.join(root, 'up'), port=0)
+    web_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    web_thread.start()
+    base = f'http://127.0.0.1:{srv.server_address[1]}'
+    r = np.random.RandomState(1)
+    clips = {f'mem://{k}': r.uniform(0, 255, (8, 180, 320, 3))
+             .astype(np.uint8) for k in ('a', 'b')}
+    unet_calls, text_calls, per_request, outputs = [], [], [], {}
+
+    def load(path):
+        ops.reset_launch_counts()
+        unet_calls.clear()
+        text_calls.clear()
+        return clips[path], 16.0
+
+    def save(frames, save_dir, name, fps=16.0):
+        per_request.append((ops.launch_counts(), len(unet_calls),
+                            len(text_calls)))
+        outputs[name] = frames
+        return os.path.join(save_dir, name)
+
+    hooks = [pipe.models.unet.register_forward_pre_hook(
+        lambda *_: unet_calls.append(1)),
+        pipe.models.text.register_forward_pre_hook(
+        lambda *_: text_calls.append(1))]
+    daemon = None
+    try:
+        warm_s = pipe.warm(8, 180, 320)
+        log(f'serve: warm(8, 180, 320) {warm_s:.2f} s')
+        jobs = []
+        for body in ({'input_path': 'mem://a', 'prompt': 'a good video',
+                      'output_name': 'a.mp4'},
+                     {'input_path': 'mem://b', 'prompt': 'a city at night',
+                      'seed': 7, 'output_name': 'b.mp4'},
+                     {'input_path': 'mem://missing'}):
+            time.sleep(0.002)         # job names are milliseconds, in order
+            status, res = http_json(f'{base}/enqueue', body)
+            assert status == 200, (status, res)
+            jobs.append(res['job'])
+        assert jobs == sorted(jobs), jobs
+        daemon = threading.Thread(target=serve.serve_loop, args=(
+            pipe, qdir, save_dir, 0.05), kwargs=dict(load=load, save=save))
+        daemon.start()
+        deadline = time.time() + 300
+        done = {}
+        while time.time() < deadline and len(done) < len(jobs):
+            for job in jobs:
+                if job not in done:
+                    status, res = http_json(f'{base}/result/{job}')
+                    if status == 200:
+                        done[job] = res
+            time.sleep(0.1)
+        late_counts = ops.launch_counts()
+        with open(os.path.join(qdir, 'shutdown'), 'w'):
+            pass
+        daemon.join(timeout=60)
+        assert not daemon.is_alive(), 'the daemon did not shut down'
+        left = sorted(os.listdir(qdir))
+    finally:
+        for h in hooks:
+            h.remove()
+        srv.shutdown()
+        srv.server_close()
+        web_thread.join(timeout=10)
+        shutil.rmtree(root)
+    assert len(done) == 3, f'done {sorted(done)} of {jobs}'
+    a, b, bad = (done[j] for j in jobs)
+    log(f'serve: done files {a}, {b}, {bad}')
+    assert a['ok'] and b['ok'], (a, b)
+    assert a['output'].endswith('a.mp4') and b['output'].endswith('b.mp4')
+    assert not bad['ok'] and bad['error'] == "KeyError: 'mem://missing'", bad
+    assert not [f for f in left if f.endswith('.working')], left
+    assert left == sorted(f'{j}.done.json' for j in jobs), left
+    # the failing request launched nothing after its loader reset the counts
+    assert not any(late_counts.values()), late_counts
+    for name in ('a.mp4', 'b.mp4'):
+        out = outputs[name]
+        assert out.shape == (8, 720, 1280, 3), out.shape
+        assert out.dtype == np.uint8, out.dtype
+        assert float(out.std()) > 0.0, f'{name}: constant output'
+    assert [n for _, n, _ in per_request] == [14, 14], per_request
+    assert [t for _, _, t in per_request] == [0, 1], per_request
+    for (launches, n_unet, n_text), job in zip(per_request, jobs):
+        want = dict(clip_counts)
+        want['fused_ln'] += (n_text - 2) * LN_PER_TEXT_ENCODE
+        assert launches == want, f'{job}: launches {launches}, want {want}'
+        assert_launches(job, launches, clip_launches(n_unet, n_text))
+    log(f'serve: request seconds {a["seconds"]}, {b["seconds"]}; failed '
+        f'request {bad["seconds"]} s; launches per request '
+        f'{[p[0] for p in per_request]}')
+    return dict(warm_s=warm_s, request_s=[a['seconds'], b['seconds']],
+                failed_s=bad['seconds'],
+                launches=[p[0] for p in per_request])
 
 
 def time_cfg_step(dev, models, profile: str | None) -> dict:
@@ -1979,18 +2170,20 @@ def run_cog(dev) -> dict:
                 out_std=float(out.std()), convert_s=convert_s)
 
 
-def time_dit_step(dev, models, profile: str | None) -> dict:
-    """One DiT call on the CFG pair at tools/bench_cog.py's shape: x
-    [2, 7, 60, 90, 32] (noisy || LQ latents), t = 499, context
-    [2, 226, 4096], bf16."""
+def time_dit_step(dev, dit, x_shape, profile: str | None = None) -> dict:
+    """One DiT call on the CFG pair: x `x_shape` (the SR DiT's
+    [2, 7, 60, 90, 32], noisy || LQ latents, at tools/bench_cog.py's
+    shape; the stock DiT's [2, 13, 60, 90, 16]), t = 499, context
+    [2, 226, 4096], bf16; CUDA events, mean of 3 after a warm-up."""
     import os
     import torch
     from star_tpu_torch import ops
     g = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn(2, 7, 60, 90, 32, generator=g, device=dev).bfloat16()
+    x = torch.randn(*x_shape, generator=g, device=dev).bfloat16()
     ctx = torch.randn(2, 226, 4096, generator=g, device=dev).bfloat16()
     tt = torch.full((2,), 499, device=dev)
-    step = lambda: models.dit(x, tt, ctx)
+    step = lambda: dit(x, tt, ctx)
+    tokens = 226 + x_shape[1] * (x_shape[2] // 2) * (x_shape[3] // 2)
     with torch.no_grad():
         step()
         ops.reset_launch_counts()
@@ -1999,13 +2192,84 @@ def time_dit_step(dev, models, profile: str | None) -> dict:
         per_step = {k: v for k, v in ops.launch_counts().items() if v}
         ms = cuda_ms(step, reps=3, warmup=0)
         res = dict(ms=ms, launches=per_step)
-        log(f'DiT CFG step [2, 7, 60, 90, 32], 9680 tokens, bf16: '
+        log(f'DiT CFG step {list(x_shape)}, {tokens} tokens, bf16: '
             f'{ms:.1f} ms; launches per step {per_step}')
-        assert_launches('DiT step', per_step, LN_PER_DIT_STEP)
+        assert per_step == LAUNCHES_PER_DIT_STEP, (
+            f'DiT step: launches {per_step}, want {LAUNCHES_PER_DIT_STEP}')
         if profile:
             root, ext = os.path.splitext(profile)
             res['profile'] = profile_step(step, f'{root}_dit{ext or ".txt"}')
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 7: the CogVideoX text-to-video path at full width
+
+
+def run_t2v(dev, models) -> dict:
+    """The stock CogVideoX-5B DiT (42x3072, 16 input channels, no LIEM)
+    made on the card with seeded random bf16 weights in place of phase 6's
+    SR DiT, beside phase 6's T5-XXL and causal VAE; sample_t2v's job loop
+    on one prompt with the CLI's defaults (49 frames: 13 latent frames of
+    60x90, 17776 tokens, none padded; 50 VPSDE-DPM++(2M) steps with
+    DynamicCFG 6 / 5) and an in-memory saver."""
+    import numpy as np
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.cli import sample_t2v
+    from star_tpu_torch.models.dit.dit import CogVideoDiT
+    from star_tpu_torch.models.t5.tokenizer import default_t5_tokenizer
+    from star_tpu_torch.pipeline import CogModelBundle
+    from star_tpu_torch.pipeline.build import _init_random
+    from star_tpu_torch.pipeline.cogvideo_t2v import CogVideoT2VPipeline
+
+    models.dit = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dit, = _init_random([lambda: CogVideoDiT(liem=False)], 1,
+                        torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f'stock DiT (random bf16, liem=False) on the card in {init_s:.1f} '
+        f's: {sum(p.numel() for p in dit.parameters())} parameters; memory '
+        f'allocated {torch.cuda.memory_allocated(dev) / 1e9:.1f} GB')
+    pipe = CogVideoT2VPipeline(
+        CogModelBundle(dit, models.vae, models.text,
+                       default_t5_tokenizer(allow_fallback=True)),
+        device=dev, time_stages=True)
+    videos = MemoryVideos()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    dit_calls = []
+    hook = dit.register_forward_pre_hook(lambda *_: dit_calls.append(1))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    saved = sample_t2v.run_jobs(pipe, [('a good video', '', 't2v.mp4', 42)],
+                                videos.save)
+    clip_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    hook.remove()
+    assert saved == ['t2v.mp4'], saved
+    out = videos.saved['t2v.mp4']
+    latents = pipe.last_latents
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f'sample_t2v job loop, 49 frames -> {out.shape} {out.dtype} in '
+        f'{clip_s:.2f} s ({len(dit_calls)} DiT calls); stages '
+        + ', '.join(f'{k} {v:.3f} s' for k, v in pipe.stage_seconds.items())
+        + f'; peak memory {peak_gb:.1f} GB; launches {launches}')
+    assert out.shape == (49, 480, 720, 3), out.shape
+    assert out.dtype == np.uint8, out.dtype
+    assert tuple(latents.shape) == (1, 13, 60, 90, 16), latents.shape
+    assert bool(torch.isfinite(latents).all()), 'non-finite latents'
+    assert float(out.std()) > 0.0, 'constant output'
+    assert len(dit_calls) == 50, len(dit_calls)
+    want = {k: COG_PATH_LAUNCHES.get(k, 0) for k in launches}
+    assert launches == want, f'T2V clip launches {launches}, want {want}'
+    return dict(dit=dit, launches=launches, clip_s=clip_s,
+                stages=dict(pipe.stage_seconds), dit_calls=len(dit_calls),
+                init_s=init_s, peak_gb=peak_gb, out_mean=float(out.mean()),
+                out_std=float(out.std()))
 
 
 # --------------------------------------------------------------------------
@@ -2046,6 +2310,7 @@ def main() -> int:
     small['train'] = check_small_train(dev)
     small['cog'] = check_small_cog(dev)
     run = run_pipeline(dev)
+    served = run_serve(dev, run['pipe'], run['launches'])
     step = time_cfg_step(dev, run['models'], args.profile)
     train = run_train(dev, run['models'], args.profile)
     # the I2VGen models go before the CogVideoX ones come, so that the Cog
@@ -2056,7 +2321,11 @@ def main() -> int:
     log(f'I2VGen models freed: {torch.cuda.memory_allocated(dev) / 1e9:.2f} '
         'GB still allocated')
     cog = run_cog(dev)
-    dit_step = time_dit_step(dev, cog.pop('models'), args.profile)
+    cog_models = cog.pop('models')
+    dit_step = time_dit_step(dev, cog_models.dit, (2, 7, 60, 90, 32),
+                             args.profile)
+    t2v = run_t2v(dev, cog_models)
+    t2v_step = time_dit_step(dev, t2v.pop('dit'), (2, 13, 60, 90, 16))
     for name, rec in results.items():
         # each kernel's launches on the path it belongs to: the training
         # forward and backward in the train step, K9 in the Cog clip, the
@@ -2068,6 +2337,7 @@ def main() -> int:
         rec['launches_per_train_step'] = train['launches'][name]
         rec['launches_cog_clip'] = cog['launches'][name]
         rec['launches_per_dit_step'] = dit_step['launches'].get(name, 0)
+        rec['launches_t2v_clip'] = t2v['launches'][name]
     log('summary ' + json.dumps(dict(
         small_model_errors=small, clip_s=run['clip_s'],
         unet_calls=run['unet_calls'],
@@ -2080,7 +2350,13 @@ def main() -> int:
         cog_init_s=cog['init_s'], cog_peak_gb=cog['peak_gb'],
         conversion=run['conversion'], cog_convert_s=cog['convert_s'],
         cog_out_mean=cog['out_mean'], cog_out_std=cog['out_std'],
-        dit_step_ms=dit_step['ms'], dit_profile=dit_step.get('profile'))))
+        dit_step_ms=dit_step['ms'], dit_profile=dit_step.get('profile'),
+        serve_warm_s=served['warm_s'], serve_request_s=served['request_s'],
+        serve_failed_request_s=served['failed_s'], t2v_clip_s=t2v['clip_s'],
+        t2v_dit_calls=t2v['dit_calls'], t2v_stages=t2v['stages'],
+        t2v_init_s=t2v['init_s'], t2v_peak_gb=t2v['peak_gb'],
+        t2v_out_mean=t2v['out_mean'], t2v_out_std=t2v['out_std'],
+        t2v_dit_step_ms=t2v_step['ms'])))
     print(json.dumps({'kernels': list(results.values())}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

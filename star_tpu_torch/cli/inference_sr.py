@@ -53,7 +53,9 @@ def parse_args(argv=None):
     p.add_argument('--color_fix', type=str, default='adain',
                    choices=('adain', 'wavelet', 'none'))
     p.add_argument('--dtype', type=str, default='bfloat16',
-                   choices=('bfloat16', 'float32'))
+                   choices=('bfloat16', 'float32'),
+                   help='float32 only with --device cpu: the CUDA kernels '
+                   'take bf16')
     p.add_argument('--allow_random_weights', action='store_true')
     p.add_argument('--device', type=str, default='cuda',
                    help='cuda (the default) or cpu')
@@ -135,6 +137,11 @@ def run_jobs(pipe, jobs, load, save, seed: int = 666) -> list:
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.dtype == 'float32' and device.type == 'cuda':
+        raise ValueError(
+            '--dtype float32 runs only with --device cpu: the CUDA kernels '
+            '(flash attention, the fused convs and norms) take bf16 tensors '
+            'only')
     logger = get_logger()
     steps = 15 if args.solver_mode == 'fast' else args.steps
     jobs = make_jobs(args)

@@ -34,9 +34,15 @@ def main(argv=None):
     p.add_argument('dst')
     p.add_argument('--merge-lora', action='store_true')
     p.add_argument('--num-layers', type=int, default=None)
+    p.add_argument('--trust-pickle', action='store_true',
+                   help='read SRC with torch.load(weights_only=False), as '
+                   'the JAX converter does: this runs the code that the '
+                   "file's pickle names, so pass it only for a file you "
+                   'trust (the default refuses any object that is not a '
+                   'tensor or a plain container)')
     args = p.parse_args(argv)
 
-    sd = load_params(args.src)
+    sd = load_params(args.src, trust_pickle=args.trust_pickle)
     for key in ('state_dict', 'module', 'model'):
         if isinstance(sd, dict) and key in sd and isinstance(sd[key], dict):
             sd = sd[key]

@@ -88,12 +88,18 @@ def save_params(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
     torch.save({k: own(v) for k, v in state_dict.items()}, path)
 
 
-def load_params(path: str) -> Dict[str, Any]:
-    """torch.load with weights_only=True (tensors and plain containers
-    only), memory-mapped where the file's format allows, onto the CPU."""
+def load_params(path: str, trust_pickle: bool = False) -> Dict[str, Any]:
+    """torch.load onto the CPU, memory-mapped where the file's format
+    allows. By default with weights_only=True (tensors and plain containers
+    only); `trust_pickle` reads it with weights_only=False, as the JAX
+    converter does, which runs whatever code the file's pickle names."""
+    mmap = zipfile.is_zipfile(path)
+    if trust_pickle:
+        return torch.load(path, map_location='cpu', weights_only=False,
+                          mmap=mmap)
     try:
         return torch.load(path, map_location='cpu', weights_only=True,
-                          mmap=zipfile.is_zipfile(path))
+                          mmap=mmap)
     except pickle.UnpicklingError as e:
         # torch names what it refused on the line of its unpickler's error
         lines = [ln.strip() for ln in str(e).splitlines()]
@@ -101,4 +107,5 @@ def load_params(path: str) -> Dict[str, Any]:
         raise ValueError(
             f'{path}: torch.load(weights_only=True) refused it: '
             f'{refused[0][:300]}; save its state dict with tensors and plain '
-            'containers only') from e
+            'containers only, or convert it with --trust-pickle if you trust '
+            'the file: that runs the code its pickle names') from e

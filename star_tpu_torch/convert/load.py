@@ -5,7 +5,9 @@ Layout on disk (written by convert/cli.py, one flat torch state dict each):
     {root}/unet.pt        ControlledV2VUNet (unet.* and controlnet.*)
     {root}/vae.pt         SVDTemporalVAE
     {root}/clip.pt        CLIPTextEncoder
-    {root}/dit.pt         CogVideoDiT (CogVideoX SR)
+    {root}/dit.pt         CogVideoDiT (CogVideoX SR; or the stock
+                          text-to-video DiT, liem=False, a state dict the
+                          port wrote: no converter reads a stock checkpoint)
     {root}/t5.pt          T5Encoder (T5-XXL)
     {root}/causal_vae.pt  CogVideoVAE
 
@@ -45,11 +47,12 @@ from .unet_map import NameMap, controlled_unet_name_map
 KINDS = ('unet', 'vae', 'clip', 't5', 'dit', 'causal_vae')
 
 
-def tower(kind: str, num_layers: int | None = None
-          ) -> tuple[Callable[[], nn.Module], NameMap]:
+def tower(kind: str, num_layers: int | None = None, liem: bool = True
+          ) -> tuple[Callable[[], nn.Module], NameMap | None]:
     """(constructor of the port module, name map) of one checkpoint kind
     at its published size; `num_layers` cuts the depth of clip, t5 and
-    dit."""
+    dit. liem=False gives the stock text-to-video DiT, whose files the
+    port writes itself: no name map reads a stock checkpoint (None)."""
     if kind == 'unet':
         return ControlledV2VUNet, controlled_unet_name_map()
     if kind == 'vae':
@@ -64,7 +67,8 @@ def tower(kind: str, num_layers: int | None = None
                 t5_encoder_name_map(num_layers=n))
     if kind == 'dit':
         n = num_layers or 42
-        return lambda: CogVideoDiT(num_layers=n), dit_name_map(num_layers=n)
+        return (lambda: CogVideoDiT(num_layers=n, liem=liem),
+                dit_name_map(num_layers=n) if liem else None)
     if kind == 'causal_vae':
         return CogVideoVAE, causal_vae_name_map()
     raise ValueError(f'unknown checkpoint kind {kind!r}; one of {KINDS}')
@@ -89,8 +93,10 @@ def module_from_state_dict(build: Callable[[], nn.Module], state_dict,
 
 
 def load_tower(root: str, kind: str, dtype: torch.dtype,
-               device: torch.device) -> nn.Module:
-    build, _ = tower(kind)
+               device: torch.device, liem: bool = True) -> nn.Module:
+    """{root}/{kind}.pt into the kind's module, strictly: a missing,
+    unexpected or misshapen key raises."""
+    build, _ = tower(kind, liem=liem)
     return module_from_state_dict(
         build, load_params(os.path.join(root, f'{kind}.pt')), dtype, device)
 
@@ -104,8 +110,11 @@ def load_star_models(root: str, dtype: torch.dtype = torch.bfloat16,
 
 
 def load_cog_models(root: str, dtype: torch.dtype = torch.bfloat16,
-                    device: str | torch.device = 'cuda') -> CogModels:
-    """The CogVideoX SR towers (dit.pt, causal_vae.pt, t5.pt) on `device`."""
+                    device: str | torch.device = 'cuda',
+                    liem: bool = True) -> CogModels:
+    """The CogVideoX towers (dit.pt, causal_vae.pt, t5.pt) on `device`: the
+    SR DiT, or with liem=False the stock text-to-video DiT. A dit.pt of the
+    other form fails to load, naming its extra or missing LIEM keys."""
     dev = resolve_device(device)
-    return CogModels(*(load_tower(root, k, dtype, dev)
+    return CogModels(*(load_tower(root, k, dtype, dev, liem)
                        for k in ('dit', 'causal_vae', 't5')))

@@ -108,8 +108,8 @@ def build(verbose: bool = False) -> str:
     so = os.path.join(BUILD_DIR, f'libstar_kernels_{tag}.so')
     if os.path.exists(so):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
+    os.makedirs(BUILD_DIR, exist_ok=True)
     objs, procs = [], []
     for s in srcs:
         obj = os.path.join(BUILD_DIR, f'{tag}_{os.path.basename(s)}.o')

@@ -108,11 +108,15 @@ def init_random_models(seed: int = 0, dtype: torch.dtype = torch.bfloat16,
 
 
 def init_random_cog_models(seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                           device: str | torch.device = 'cuda') -> CogModels:
-    """Random-weight CogVideoX SR models at their published sizes (the
-    42-layer DiT, the causal VAE, T5-XXL) on `device`, in `dtype`."""
-    return CogModels(*_init_random((CogVideoDiT, CogVideoVAE, T5Encoder),
-                                   seed, dtype, device))
+                           device: str | torch.device = 'cuda',
+                           liem: bool = True) -> CogModels:
+    """Random-weight CogVideoX models at their published sizes (the
+    42-layer DiT, the causal VAE, T5-XXL) on `device`, in `dtype`: the SR
+    DiT (LIEM, 32 input channels), or with liem=False the stock
+    text-to-video DiT (16 input channels)."""
+    return CogModels(*_init_random(
+        (lambda: CogVideoDiT(liem=liem), CogVideoVAE, T5Encoder), seed,
+        dtype, device))
 
 
 def make_bundle(models: StarModels, tokenizer=None, param_dtype=None,

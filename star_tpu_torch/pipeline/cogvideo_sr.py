@@ -31,9 +31,10 @@ from .color_fix import adain_color_fix
 
 @dataclasses.dataclass
 class CogModelBundle:
-    """The networks the pipeline drives:
-      dit(x [B, T, h, w, 2Cz], t_idx [B], context [B, 226, 4096]) -> v
-      vae.encode(video, generator, eps) -> scaled latents;
+    """The networks the pipelines drive:
+      dit(x [B, T, h, w, 2Cz] (Cz for the stock text-to-video DiT), t_idx
+          [B], context [B, 226, 4096]) -> v
+      vae.encode(video, generator, eps) -> scaled latents (SR only);
       vae.decode_window(latents, cache, first) -> (video, cache)
       text(tokens [B, 226]) -> [B, 226, 4096]
       tokenizer(texts) -> [B, 226] int32
@@ -52,10 +53,59 @@ class CogSamplerConfig:
     shift_scale: float = 1.0
 
 
-class CogVideoSRPipeline:
-    """time_stages: synchronise the card after each stage and keep the host
-    seconds of each (text, vae_encode, denoise, vae_decode, color_fix) in
-    `stage_seconds`."""
+def latent_frames(num_frames: int) -> int:
+    """The latent frame count of `num_frames` frames; raises unless it is
+    4k+1 with k+1 odd (the windowed decode drops the tail otherwise)."""
+    t_lat = (num_frames - 1) // 4 + 1
+    if (num_frames - 1) % 4 or (t_lat > 1 and t_lat % 2 == 0):
+        raise ValueError(f'{num_frames} frames: the frame count must be 4k+1 '
+                         'with k+1 odd (the windowed decode drops the tail '
+                         'otherwise)')
+    return t_lat
+
+
+def cfg_denoiser(dit: nn.Module, ctx_pair: torch.Tensor,
+                 lq_pair: torch.Tensor | None = None):
+    """denoise_fn(x, t, a, scale) of the VPSDE sampler: `dit` on the CFG
+    pair (uncond first, `ctx_pair`), with the LQ latents `lq_pair`
+    channel-concatenated for SR and none for the stock model; VideoScaling
+    (c_skip = a on the noise channels, c_out = -sqrt(1 - a^2), c_in = 1),
+    then the DynamicCFG mix. The constants round to fp32 as the JAX
+    package's do."""
+    def denoise_fn(x, t, a, scale):
+        xp = torch.cat([x, x], dim=0)
+        xin = xp if lq_pair is None else torch.cat(
+            [xp.to(lq_pair.dtype), lq_pair], dim=-1)
+        v = dit(xin, torch.full((2,), t, device=x.device), ctx_pair).float()
+        a32 = np.float32(a)
+        c_out = float(-np.sqrt(np.float32(1.0) - a32 * a32))
+        den = v * c_out + xp.float() * float(a32)
+        d_u, d_c = den.chunk(2, dim=0)
+        return d_u + float(np.float32(scale)) * (d_c - d_u)
+    return denoise_fn
+
+
+@torch.no_grad()
+def decode_windows(vae: nn.Module, out_z: torch.Tensor) -> torch.Tensor:
+    """Serial windowed decode of latents [1, T, h, w, Cz]: [0:3], then
+    [2i+1:2i+3], each window continuing the causal convs of the one
+    before."""
+    t_lat = out_z.shape[1]
+    if t_lat <= 3:
+        return vae.decode_window(out_z, {}, True)[0]
+    recons, cache = [], {}
+    for i in range((t_lat - 1) // 2):
+        s, e = (0, 3) if i == 0 else (2 * i + 1, 2 * i + 3)
+        video, cache = vae.decode_window(out_z[:, s:e], cache, i == 0)
+        recons.append(video)
+    return torch.cat(recons, dim=1)
+
+
+class CogPipelineBase:
+    """What the CogVideoX pipelines share: the device, the ZeroSNR
+    discretization, the T5 conditioning with its cache, and the stage
+    timer. time_stages: synchronise the card after each stage and keep the
+    host seconds of each in `stage_seconds`."""
 
     def __init__(self, models: CogModelBundle,
                  sampler: CogSamplerConfig = CogSamplerConfig(),
@@ -91,6 +141,18 @@ class CogVideoSRPipeline:
                 {'txt': [prompt]})['crossattn']
         return self._text_cache[prompt]
 
+    def _sample(self, denoise_fn, init: torch.Tensor,
+                generator: torch.Generator | None,
+                noises) -> torch.Tensor:
+        return sample_vpsde_dpmpp_2m(
+            denoise_fn, init.to(self.device, torch.float32), self.disc,
+            self.cfg.num_steps, generator, self.cfg.guider_scale,
+            self.cfg.guider_exp, noises=noises)
+
+
+class CogVideoSRPipeline(CogPipelineBase):
+    """Stage seconds: text, vae_encode, denoise, vae_decode, color_fix."""
+
     @torch.no_grad()
     def solve(self, video: torch.Tensor, ctx_c: torch.Tensor,
               ctx_u: torch.Tensor, generator: torch.Generator | None = None,
@@ -105,48 +167,16 @@ class CogVideoSRPipeline:
         lq_z = self.models.vae.encode(video[None], generator,
                                       eps=noise.get('enc_eps'))
         t0 = self._stage('vae_encode', t0)
-        lq_pair = torch.cat([lq_z, lq_z], dim=0)
-        ctx_pair = torch.cat([ctx_u, ctx_c], dim=0)     # uncond first
-
-        def denoise_fn(x, t, a, scale):
-            xp = torch.cat([x, x], dim=0)
-            xin = torch.cat([xp.to(lq_pair.dtype), lq_pair], dim=-1)
-            v = self.models.dit(xin, torch.full((2,), t, device=x.device),
-                                ctx_pair).float()
-            # VideoScaling with the SR rule: c_skip applies to the noise
-            # half only; c_in = 1. The constants round to fp32 as the JAX
-            # package's do.
-            a32 = np.float32(a)
-            c_out = float(-np.sqrt(np.float32(1.0) - a32 * a32))
-            den = v * c_out + xp.float() * float(a32)
-            d_u, d_c = den.chunk(2, dim=0)
-            return d_u + float(np.float32(scale)) * (d_c - d_u)
-
+        denoise_fn = cfg_denoiser(self.models.dit,
+                                  torch.cat([ctx_u, ctx_c], dim=0),
+                                  torch.cat([lq_z, lq_z], dim=0))
         init = noise.get('init')
         if init is None:
             init = torch.randn(lq_z.shape, generator=generator,
                                device=self.device)
-        out_z = sample_vpsde_dpmpp_2m(
-            denoise_fn, init.to(self.device, torch.float32), self.disc,
-            self.cfg.num_steps, generator, self.cfg.guider_scale,
-            self.cfg.guider_exp, noises=noise.get('sde'))
+        out_z = self._sample(denoise_fn, init, generator, noise.get('sde'))
         self._stage('denoise', t0)
         return out_z
-
-    @torch.no_grad()
-    def decode(self, out_z: torch.Tensor) -> torch.Tensor:
-        """Serial windowed decode: [0:3], then [2i+1:2i+3], each window
-        continuing the causal convs of the one before."""
-        t_lat = out_z.shape[1]
-        vae = self.models.vae
-        if t_lat <= 3:
-            return vae.decode_window(out_z, {}, True)[0]
-        recons, cache = [], {}
-        for i in range((t_lat - 1) // 2):
-            s, e = (0, 3) if i == 0 else (2 * i + 1, 2 * i + 3)
-            video, cache = vae.decode_window(out_z[:, s:e], cache, i == 0)
-            recons.append(video)
-        return torch.cat(recons, dim=1)
 
     def enhance_a_video(self, lq_frames: np.ndarray, prompt: str,
                         negative_prompt: str = '', seed: int = 42,
@@ -154,12 +184,7 @@ class CogVideoSRPipeline:
                         ) -> np.ndarray:
         """lq_frames [F, H, W, 3] uint8 RGB, already at the target
         resolution -> [F, H, W, 3] uint8."""
-        f = lq_frames.shape[0]
-        t_lat = (f - 1) // 4 + 1
-        if (f - 1) % 4 or (t_lat > 1 and t_lat % 2 == 0):
-            raise ValueError(f'{f} frames: the frame count must be 4k+1 with '
-                             'k+1 odd (the windowed decode drops the tail '
-                             'otherwise)')
+        latent_frames(lq_frames.shape[0])
         self.stage_seconds = {}
         t0 = time.perf_counter()
         video = torch.as_tensor(lq_frames, device=self.device).float()
@@ -172,7 +197,7 @@ class CogVideoSRPipeline:
         self.last_latents = out_z
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = self.decode(out_z)[0]
+            out = decode_windows(self.models.vae, out_z)[0]
             t0 = self._stage('vae_decode', t0)
             out = torch.clamp(out.float() * 0.5 + 0.5, 0.0, 1.0) * 255.0
             out = torch.round(adain_color_fix(out, video)).to(torch.uint8)

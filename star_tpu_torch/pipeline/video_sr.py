@@ -171,6 +171,27 @@ class STARPipeline:
         self._stage('color_fix', t0)
         return out
 
+    # ---------------------------------------------------------- bucket warming
+    def warm(self, f: int, h: int, w: int,
+             target_res: Optional[tuple[int, int]] = None) -> float:
+        """Pay a shape bucket's first-clip costs ahead of traffic: on the
+        card, build and load the kernel library, then run one synchronised
+        clip of `f` black frames of h x w (the allocator's pools for the
+        bucket, each kernel's first launch, the negative prompt's text
+        encode). Returns that clip's host seconds (the JAX package, which
+        compiles the bucket without running it, returns the compiled
+        graph's FLOPs instead)."""
+        if self.device.type == 'cuda':
+            from ..ops import _build
+            _build.build()
+            _build.lib()
+        t0 = time.perf_counter()
+        out = self.enhance_a_video_async(np.zeros((f, h, w, 3), np.uint8),
+                                         '', target_res=target_res)
+        if out.is_cuda:
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
     # ------------------------------------------------------------- interface
     def enhance_a_video_async(self, frames: np.ndarray, prompt: str,
                               seed: int = 666,

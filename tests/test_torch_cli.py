@@ -249,8 +249,8 @@ def tiny_star(monkeypatch):
     the saver recording each clip's frames."""
     monkeypatch.setattr(inference_sr, 'init_random_models', tiny_star_models)
     monkeypatch.setattr(inference_sr, 'PipelineConfig', TINY_CFG)
-    monkeypatch.setattr(load, 'tower', lambda kind, num_layers=None: (
-        STAR_TINY[kind][0], STAR_TINY[kind][1]()))
+    monkeypatch.setattr(load, 'tower', lambda kind, num_layers=None,
+                        liem=True: (STAR_TINY[kind][0], STAR_TINY[kind][1]()))
     written = {}
     real_save = inference_sr.save_video
 
@@ -366,6 +366,23 @@ def test_inference_sr_checks_its_jobs_before_building_models(
         inference_sr.main(['--input_path', str(vids / 'a.mp4'),
                            '--model_path', str(tmp_path / 'none'),
                            '--device', 'cpu'])
+
+
+def test_inference_sr_refuses_float32_on_the_card(tmp_path, monkeypatch):
+    """--dtype float32 on a CUDA device raises, naming the flag and the
+    bf16 kernels, before any job is checked or model built (the input
+    does not exist); on the CPU the flag is taken (the tests above)."""
+    def never(*a, **k):
+        raise AssertionError('a job or model was made')
+    for name in ('make_jobs', 'init_random_models', 'load_star_models'):
+        monkeypatch.setattr(inference_sr, name, never)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    with pytest.raises(ValueError, match='--dtype float32.*bf16'):
+        inference_sr.main(['--input_path', str(tmp_path / 'gone.mp4'),
+                           '--allow_random_weights', '--dtype', 'float32'])
+    with pytest.raises(ValueError, match='--dtype float32'):
+        inference_sr.main(['--input_path', str(tmp_path / 'gone.mp4'),
+                           '--dtype', 'float32', '--device', 'cuda:0'])
 
 
 # ------------------------------------------------------ sample_sr (CogVideo)

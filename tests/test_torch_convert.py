@@ -351,8 +351,8 @@ def test_conversion_keeps_dtype_and_copies_nothing_where_layouts_agree():
 
 @pytest.fixture
 def small_towers(monkeypatch):
-    monkeypatch.setattr(load, 'tower', lambda kind, num_layers=None: (
-        SMALL[kind][0], SMALL[kind][1]()))
+    monkeypatch.setattr(load, 'tower', lambda kind, num_layers=None,
+                        liem=True: (SMALL[kind][0], SMALL[kind][1]()))
 
 
 def test_cli_files_load_into_the_bundles(small_towers, tmp_path, capsys):
@@ -395,6 +395,24 @@ def test_load_params_says_what_weights_only_refused(tmp_path):
                 'args': argparse.Namespace(lr=1)}, path)
     with pytest.raises(ValueError, match='Namespace'):
         load_params(str(path))
+
+
+def test_convert_cli_trust_pickle_reads_what_weights_only_refuses(
+        small_towers, tmp_path):
+    """A checkpoint with an argparse.Namespace beside its wrapped weights,
+    as the JAX converter loads it (weights_only=False): refused by default,
+    the refusal naming --trust-pickle; converted with it, equal to the
+    conversion of the bare state dict."""
+    build, name_map = SMALL['vae'][0], SMALL['vae'][1]()
+    sd = reference_sd(build, name_map, seed=31)
+    src, dst = tmp_path / 'ckpt.pt', tmp_path / 'vae.pt'
+    torch.save({'module': sd, 'args': argparse.Namespace(lr=1)}, src)
+    with pytest.raises(ValueError, match='Namespace.*--trust-pickle'):
+        cli.main(['vae', str(src), str(dst)])
+    assert not dst.exists()
+    cli.main(['vae', str(src), str(dst), '--trust-pickle'])
+    assert_same(load_params(str(dst)),
+                convert_state_dict(sd, name_map, build()))
 
 
 def test_save_params_writes_a_view_without_its_storage(tmp_path):

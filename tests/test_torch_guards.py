@@ -6,7 +6,8 @@
     import nothing of star_tpu or jax either;
   * the entry points raise without a CUDA card unless given device="cpu":
     the random-weight models, the pipelines, load_star_models /
-    load_cog_models, setup_seed and both serving CLIs' main;
+    load_cog_models, setup_seed and the main of inference_sr, sample_sr,
+    sample_t2v and serve; warm_cache needs nvcc, not a card;
   * a CUDA tensor never reaches a kernel's plain version: each wrapper
     launches (here a counting stand-in for the launcher) or raises;
   * under autograd the differentiable kernels launch forward and backward
@@ -56,7 +57,9 @@ def test_port_imports_nothing_of_jax_or_star_tpu():
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
-    from star_tpu_torch.cli import inference_sr, sample_sr
+    from star_tpu_torch.cli import (inference_sr, sample_sr, sample_t2v,
+                                    serve, warm_cache)
+    from star_tpu_torch.ops import _build
     from star_tpu_torch.config import PipelineConfig
     from star_tpu_torch.convert.load import load_cog_models, load_star_models
     from star_tpu_torch.pipeline import (ModelBundle, STARPipeline,
@@ -89,17 +92,33 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
     with pytest.raises(FileNotFoundError, match='in.mp4'):
         inference_sr.main(['--input_path', video, '--allow_random_weights',
                            '--device', 'cpu'])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        sample_t2v.main(['--prompt', 'x', '--allow_random_weights'])
+    queue = tmp_path / 'q'
+    with pytest.raises(RuntimeError, match='CUDA'):
+        serve.main(['--queue_dir', str(queue), '--allow_random_weights'])
+    assert not queue.exists()          # refused before it made the queue
+    # warm_cache needs nvcc, not a card: here, with neither and no built
+    # library, it raises before it builds anything
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path / 'kernels'))
+    monkeypatch.setenv('PATH', str(tmp_path))
+    monkeypatch.delenv('NVCC', raising=False)
+    with pytest.raises(RuntimeError, match='nvcc not found.*CUDA'):
+        warm_cache.main([])
+    assert not (tmp_path / 'kernels').exists()
 
 
 def test_clis_start_and_answer_help_without_jax():
-    """convert.cli and both serving CLIs import and print their help in a
+    """convert.cli and the serving CLIs import and print their help in a
     process with no jax (tests/conftest.py imports it into this one)."""
     import subprocess
     import sys
     code = (
         'import runpy, sys\n'
         'for m in ("star_tpu_torch.convert.cli", '
-        '"star_tpu_torch.cli.inference_sr", "star_tpu_torch.cli.sample_sr"):\n'
+        '"star_tpu_torch.cli.inference_sr", "star_tpu_torch.cli.sample_sr", '
+        '"star_tpu_torch.cli.sample_t2v", "star_tpu_torch.cli.serve", '
+        '"star_tpu_torch.cli.web", "star_tpu_torch.cli.warm_cache"):\n'
         '    sys.argv = [m, "--help"]\n'
         '    try:\n'
         '        runpy.run_module(m, run_name="__main__")\n'
@@ -111,8 +130,9 @@ def test_clis_start_and_answer_help_without_jax():
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    for flag in ('--merge-lora', '--prompt_file', '--sampling_num_frames',
-                 '--device'):
+    for flag in ('--merge-lora', '--trust-pickle', '--prompt_file',
+                 '--sampling_num_frames', '--device', '--num_frames',
+                 '--queue_dir', '--warm', '--upload_dir', '--decode_window'):
         assert flag in out.stdout, flag
 
 

@@ -18,8 +18,8 @@
    version and one PyTorch library call with CUDA events; then runs a
    small-width UNet+ControlNet and VAE, and a small CogVideoX DiT and
    causal VAE, on the card (bf16, kernels) against the same weights on the
-   host (fp32, plain versions), and the small UNet+ControlNet's
-   `loss_and_grads` likewise;
+   host (fp32, plain versions), and the small UNet+ControlNet's and a
+   small LoRA DiT's `loss_and_grads` likewise;
 3. builds the full-width models with seeded random bf16 weights on the card,
    writes them as reference-named state dicts (the inverse of the port's
    name maps), converts those files with star_tpu_torch.convert.cli, loads
@@ -55,7 +55,21 @@
    prompt with the CLI's defaults (49 frames of 480x720: 13 latent frames,
    17776 tokens; 50 DiT calls), the launch counts reset just before and
    read just after, and times one stock-DiT CFG step;
-8. prints one JSON line of kernel results, the card line, and as the last
+5b. (after phase 5, on its models) runs cli/train_sr.py's loop: an
+   in-memory iterator of two synthetic 8-frame 720x1280 triplets, 3 steps
+   with checkpoints at steps 1 and 2 (torch files under build/), the
+   step-2 file held bit for bit to the run's state at step 2, then a run
+   resumed from it to step 3 held to the continued run's step 3; each
+   step's launches reset just before and read just after;
+6b. (after phase 7) frees the stock DiT, builds CogVideoDiT(lora_rank=512)
+   with LIEM at full width beside phase 6's T5-XXL and causal VAE, runs
+   cli/train_cog.py's loop on synthetic 25-frame 480x720 triplets (one
+   warm-up and three timed steps, each step's launches exact, K9's
+   backward counted), then one step with the frequency loss;
+8. runs cli/make_paired_data.py's per-clip function on a synthetic
+   32-frame 720x1280 clip on the card, recipes default and mid, the codec
+   stage on;
+9. prints one JSON line of kernel results, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line is printed. Without a CUDA
@@ -219,6 +233,14 @@ def bound_sum_ms(kind: str, *tables: dict) -> float:
 DECODE_K5 = (vae_decode_per_call(2, 3)[0], vae_decode_per_call(1, 2)[0])
 DECODE_K6 = (vae_decode_per_call(2, 3)[1], vae_decode_per_call(1, 2)[1])
 TRAIN_TIMED_STEPS = 6
+# the keys of a training CLI's metrics.jsonl row: the train step's metrics
+# and step, lr, sec_per_step (tests/test_torch_train_cli.py holds them to
+# the JAX CLIs' rows)
+TRAIN_SR_ROW_KEYS = {'loss_v', 'loss_low', 'loss_high', 'loss_t',
+                     'total_loss', 'grad_norm', 'step', 'lr', 'sec_per_step'}
+TRAIN_COG_ROW_KEYS = {'loss_v', 'total_loss', 'grad_norm', 'step', 'lr',
+                      'sec_per_step'}
+TRAIN_COG_FREQ_ROW_KEYS = TRAIN_COG_ROW_KEYS | {'loss_low', 'loss_high'}
 # the train step's kernels: the UNet's under autograd, and the VAE decode of
 # pred-x0 for the frequency loss (no grad)
 TRAIN_PATH_KERNELS = ('flash_packed_lse', 'flash_bwd', 'flash_d512',
@@ -1379,6 +1401,105 @@ def check_small_train(dev) -> dict:
                 launches=counts)
 
 
+# The small-width Cog train step (phase 2b), card (bf16, kernels) against
+# host (fp32, plain versions) on the same bf16-representable weights and
+# draws, held as the UNet's is: every leaf within COG_GRAD_ALL_TOL of the
+# largest gradient of all, the leaves holding >= 1e-2 of that also within
+# COG_GRAD_LEAF_TOL of their own largest, loss and grad_norm within
+# COG_LOSS_TOL. Set from five runs on an H100, which read the same (worst
+# leaf 3.82e-2, all leaves 6.75e-3, grad_norm 2.96e-4, loss 1.85e-4), with
+# margins of 3.1x, 3x and 3.4x; on the host, a K9 backward that rotates
+# the wrong way misses the per-leaf one by 10x
+# (tests/test_torch_cog_train.py).
+COG_GRAD_LEAF_TOL, COG_GRAD_ALL_TOL, COG_LOSS_TOL = 0.12, 0.02, 1e-3
+# the small DiT's launches in one loss_and_grads (2 layers, remat): K9 on q
+# and k forward and again in the recompute, K2 `with_l` likewise, K3 once a
+# layer, K10 three times a layer twice and the two final norms once
+SMALL_COG_TRAIN_LAUNCHES = {'qk_ln_rope': 8, 'flash_packed_lse': 4,
+                            'flash_bwd': 2, 'fused_ln': 14}
+
+
+def small_cog_train_case(seed: int = 13):
+    """small_cog_dit's DiT with LoRA rank 16 (every zero-init layer made
+    non-zero, weights bf16-representable), on the host in fp32, and a
+    batch: gt and lq latents [1, 3, 24, 32, 4], context [1, 8, 32], one
+    index and noise."""
+    import torch
+    from star_tpu_torch.models.dit.dit import CogVideoDiT
+    g = torch.Generator().manual_seed(seed)
+    dit = randomised(CogVideoDiT(
+        hidden_size=256, num_layers=2, num_heads=4, patch_size=2,
+        latent_channels=4, text_hidden_size=32, text_length=8,
+        time_embed_dim=64, lora_rank=16), g)
+    with torch.no_grad():
+        for layer in dit.layers:
+            layer.q_ln_scale.mul_(3.0)
+            layer.k_ln_scale.mul_(3.0)
+        for p in dit.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+    shape = (1, 3, 24, 32, 4)
+    batch = {'gt_latent': torch.randn(shape, generator=g),
+             'lq_latent': torch.randn(shape, generator=g),
+             'y': torch.randn(1, 8, 32, generator=g)}
+    return dit, batch, torch.tensor([700]), torch.randn(shape, generator=g)
+
+
+def small_cog_train_grads(dit, batch, idx, noise):
+    """loss_and_grads of the Cog train step: (metrics, {trainable name:
+    gradient})."""
+    from star_tpu_torch.train.cog_trainer import (CogTrainConfig,
+                                                  make_cog_train_state,
+                                                  make_cog_train_step)
+    cfg = CogTrainConfig(freq_loss=False)
+    _, tx = make_cog_train_state(cfg, dit)
+    step = make_cog_train_step(cfg, dit, tx)
+    metrics = step.loss_and_grads(batch, idx=idx, noise=noise)
+    grads = {n: p.grad for n, p in dit.named_parameters() if n in tx.names}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def check_small_cog_train(dev) -> dict:
+    """loss_and_grads of the small LoRA DiT on the card (bf16 module, fp32
+    masters, kernels: K9 and its backward, K2 with_l, K3, K10) against the
+    host (fp32, plain versions)."""
+    import copy
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.ops import qk_ln_rope
+    dit, batch, idx, noise = small_cog_train_case()
+    ref_m, ref_g = small_cog_train_grads(copy.deepcopy(dit), batch, idx,
+                                         noise)
+    card = copy.deepcopy(dit).to(dev, torch.bfloat16)
+    ops.reset_launch_counts()
+    m, grads = small_cog_train_grads(
+        card, {k: v.to(dev) for k, v in batch.items()}, idx.to(dev),
+        noise.to(dev))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    backwards = qk_ln_rope.BACKWARDS
+    leaf, every, name = grad_errors(ref_g, grads)
+    loss_err = abs(m['total_loss'] - ref_m['total_loss']) \
+        / ref_m['total_loss']
+    norm_err = abs(m['grad_norm'] - ref_m['grad_norm']) / ref_m['grad_norm']
+    log(f'small Cog train step [1,3,24,32] 592 tokens: card (bf16, kernels)'
+        f' vs host (fp32, plain): loss {m["total_loss"]:.6f} vs '
+        f'{ref_m["total_loss"]:.6f} (rel {loss_err:.3e}), grad_norm '
+        f'{m["grad_norm"]:.6f} vs {ref_m["grad_norm"]:.6f} (rel '
+        f'{norm_err:.3e}); worst leaf error {leaf:.3e} of its largest '
+        f'({name}; tol {COG_GRAD_LEAF_TOL}), worst error {every:.3e} of the '
+        f'largest gradient (tol {COG_GRAD_ALL_TOL}); launches {counts}, K9 '
+        f'backwards {backwards}')
+    assert counts == SMALL_COG_TRAIN_LAUNCHES, counts
+    assert backwards == SMALL_COG_TRAIN_LAUNCHES['qk_ln_rope'] // 2
+    assert loss_err <= COG_LOSS_TOL and norm_err <= COG_LOSS_TOL, (
+        loss_err, norm_err)
+    assert leaf <= COG_GRAD_LEAF_TOL and every <= COG_GRAD_ALL_TOL, (
+        leaf, every, name)
+    return dict(loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+                worst_leaf_err=leaf, worst_leaf=name, worst_all_err=every,
+                launches=counts)
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 6: reference checkpoints through the port's convert/
 
@@ -1828,7 +1949,8 @@ def fp32_k5_products(prof) -> list:
 
 
 def profile_step(step, path: str, gemm_sources: bool = False,
-                 bounds: dict | None = None) -> dict:
+                 bounds: dict | None = None,
+                 ranges: tuple[str, ...] = ()) -> dict:
     """Device time by kernel over one step (torch.profiler), summed by
     kernel family, the busy share, and the top kernels; the full table is
     written to `path`. With `gemm_sources` the GEMM ops (mm, addmm, bmm)
@@ -1836,7 +1958,9 @@ def profile_step(step, path: str, gemm_sources: bool = False,
     time of the kernels under each, into `path` with _gemms before its
     extension: the backward's GEMMs have no Python stack, and their shapes
     name them. `bounds` maps a family to the bound of its launches in the
-    step (ms), logged beside the family's time."""
+    step (ms), logged beside the family's time. `ranges` names
+    torch.profiler.record_function ranges (K9's backward) whose device
+    time, the kernels launched inside them, is reported on its own line."""
     import os
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1851,7 +1975,9 @@ def profile_step(step, path: str, gemm_sources: bool = False,
     from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:   # kernels only, not ops
+        # kernels only: not ops, and not the device-side spans of the
+        # record_function ranges, which cover kernels counted already
+        if ev.device_type != DeviceType.CUDA or ev.key in ranges:
             continue
         dev_us = getattr(ev, 'self_device_time_total', None)
         if dev_us is None:
@@ -1874,6 +2000,19 @@ def profile_step(step, path: str, gemm_sources: bool = False,
             fh.write(f'{ms:10.3f} ms {n:6d}  {key}\n')
     top = [dict(ms=round(ms, 3), count=n, kernel=key[:80])
            for ms, n, key in rows[:12]]
+    in_ranges = {}
+    for ev in prof.key_averages():
+        if ev.key in ranges and ev.device_type != DeviceType.CUDA:
+            dev_us = getattr(ev, 'device_time_total', None)
+            if dev_us is None:
+                dev_us = getattr(ev, 'cuda_time_total', 0.0)
+            in_ranges[ev.key] = dict(ms=dev_us / 1e3, count=ev.count)
+    with open(path, 'a') as fh:
+        for key, r in in_ranges.items():
+            fh.write(f'range {r["ms"]:10.3f} ms {r["count"]:6d}  {key}\n')
+    for key, r in in_ranges.items():
+        log(f'range {key}: {r["ms"]:.1f} ms of device time in {r["count"]} '
+            'calls')
     for fam, b in (bounds or {}).items():
         ms = families.get(fam, 0.0)
         log(f'{fam}: {ms:.1f} ms against a bound of {b:.1f} ms for its '
@@ -1890,7 +2029,8 @@ def profile_step(step, path: str, gemm_sources: bool = False,
         + '; '.join(f"{r['kernel'][:40]} {r['ms']} ms x{r['count']}"
                     for r in top[:6]))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=families,
-                top=top, bounds=bounds, gemms=gemms, k5_fp32=k5_fp32)
+                top=top, bounds=bounds, gemms=gemms, k5_fp32=k5_fp32,
+                ranges=in_ranges)
 
 
 def gemm_table(prof, path: str) -> list:
@@ -2103,6 +2243,167 @@ def run_train(dev, models, profile: str | None = None) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 5b: train_sr's loop at full width
+
+
+# one train_sr step's kernels: phase 5's train step, the VAE encodes of gt
+# and lq (8 frames of 720x1280: K6 and K2 d=512 each) and one CLIP encode
+SR_CLI_STEP_LAUNCHES = {
+    'fused_ln': LN_PER_TRAIN_STEP['fused_ln'] + LN_PER_TEXT_ENCODE,
+    'fused_resid_ln': LN_PER_TRAIN_STEP['fused_resid_ln'],
+    'flash_packed_lse': ATTN_PER_TRAIN_STEP['flash_packed_lse'],
+    'flash_bwd': ATTN_PER_TRAIN_STEP['flash_bwd'],
+    'flash_d512': ATTN_PER_TRAIN_STEP['flash_d512'] + 2,
+    'fused_gn_silu_tconv3': 2 * K5_PER_CFG_STEP + 2 * K5_PER_DECODE,
+    'conv3x3': 2 * K6_PER_DECODE + 2 * K6_PER_ENCODE,
+    'upsample_conv2x': K7_PER_TRAIN_STEP, 'flash_packed': 0}
+# the resumed run's step-3 masters against the continued run's: both start
+# step 3 from bit-identical state and draws, so they differ by the card's
+# run-to-run rounding only (K3's dQ and K5's statistics are atomic adds in
+# no fixed order) passed through one AdamW update. Held as the norm of the
+# difference over the norm of the continued run's step-3 update, to
+# RESUME_TOL: measured 7.4e-4 to 1.06e-3 in five runs on an H100, held
+# with a margin of 4.7x; a resume with other draws or data moves the
+# update by about its own size.
+RESUME_TOL = 5e-3
+
+
+def synthetic_triplets(n: int, frames: int, h: int, w: int, seed: int):
+    """n in-memory training samples as the datasets yield them: gt and lq
+    fp32 in [-1, 1] [frames, h, w, 3] (lq a smoothed, noisier gt), and a
+    caption."""
+    import numpy as np
+    r = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        gt = np.stack([np.stack([np.sin(xx / (40 + 9 * c) + t / 3 + i)
+                                 * np.cos(yy / (30 + 7 * c)) for c in
+                                 range(3)], -1) for t in range(frames)])
+        gt = (gt * 0.8 + r.uniform(-0.1, 0.1, gt.shape)).astype(np.float32)
+        lq = (gt * 0.7 + r.uniform(-0.2, 0.2, gt.shape)).astype(np.float32)
+        out.append({'gt': gt.clip(-1, 1), 'lq': lq.clip(-1, 1),
+                    'text': f'a good video {i}'})
+    return out
+
+
+def run_train_sr_cli(dev, models) -> dict:
+    """cli/train_sr.py's loop (train_loop over make_trainer) on phase 5's
+    full-width models: TrainConfig() with the frequency loss, an in-memory
+    iterator of two synthetic 8-frame 720x1280 triplets (8 frames, not the
+    CLI's default of 32: 32 do not fit one card without parallel/), batch
+    1, 3 steps with checkpointing_steps 2 into build/ckpt_train_sr; the
+    step-2 checkpoint reloaded and held bit for bit to the state the run
+    had at step 2; then a run resumed from it to step 3, held to the
+    continued run's step 3 within RESUME_TOL."""
+    import os
+    import shutil
+    import statistics
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.cli import train_sr
+    from star_tpu_torch.models.clip.tokenizer import default_tokenizer
+    from star_tpu_torch.train import TrainConfig
+    from star_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'build', 'ckpt_train_sr')
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    g = torch.Generator(device=dev).manual_seed(11)
+    cfg = TrainConfig()
+    state, step_fn, make_batch, _ = train_sr.make_trainer(
+        models, cfg, dev, g, default_tokenizer(allow_fallback=True))
+    samples = synthetic_triplets(2, 8, 720, 1280, seed=3)
+    make_it = lambda: iter(samples)
+    rows, counts, snap = [], [], {}
+    adamw = state.opt_state.adamw
+
+    save_s = {}
+
+    class TimedCheckpoints(CheckpointManager):
+        def save(self, step, st, generator=None):
+            t0 = time.perf_counter()
+            done = super().save(step, st, generator)
+            save_s[step] = time.perf_counter() - t0
+            return done
+
+    def write_row(row):
+        """Reads the step's launches; at step 2 copies the state to the
+        host (its seconds are taken off step 3's)."""
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+        ops.reset_launch_counts()
+        rows.append(row)
+        log(f'train_sr step {row["step"]}: ' + ' '.join(
+            f'{k} {v:.5g}' for k, v in row.items()) + f'; launches '
+            f'{ {k: v for k, v in counts[-1].items() if v} }')
+        if row['step'] == 2:
+            t0 = time.perf_counter()
+            host = lambda t: t.to('cpu', copy=True)
+            snap.update(
+                params={n: host(m) for n, m in state.params.items()},
+                moments={i: {k: host(v) for k, v in st.items()} for i, st
+                         in adamw.state_dict()['state'].items()})
+            snap['seconds'] = time.perf_counter() - t0
+
+    ckpt = TimedCheckpoints(ckpt_dir, max_to_keep=3, save_interval_steps=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    state = train_sr.train_loop(
+        step_fn, state, make_batch, make_it, start_step=0, max_train_steps=3,
+        global_batch=1, checkpoints=ckpt, write_row=write_row,
+        learning_rate=cfg.learning_rate, generator=g)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    assert ckpt.all_steps() == [1, 2], ckpt.all_steps()
+    for i, (row, c) in enumerate(zip(rows, counts)):
+        assert set(row) == TRAIN_SR_ROW_KEYS, sorted(row)
+        assert all(math.isfinite(v) for v in row.values()), row
+        assert_launches(f'train_sr step {i + 1}', c, SR_CLI_STEP_LAUNCHES)
+    # the step-2 checkpoint, bit for bit
+    blob = torch.load(ckpt.path(2), map_location='cpu', weights_only=True)
+    assert blob['step'] == 2
+    for n, m in snap['params'].items():
+        assert torch.equal(blob['params'][n], m), n
+    for i, st in snap['moments'].items():
+        for k, v in st.items():
+            assert torch.equal(blob['opt']['state'][i][k], v), (i, k)
+    del blob
+    step3 = {n: m.to('cpu', copy=True) for n, m in state.params.items()}
+    # resume from step 2 to step 3, as --resume does
+    state = ckpt.restore(2, state, models.unet, g)
+    ops.reset_launch_counts()
+    resumed_rows = []
+    state = train_sr.train_loop(
+        step_fn, state, make_batch, make_it, start_step=2, max_train_steps=3,
+        global_batch=1, checkpoints=None, write_row=resumed_rows.append,
+        learning_rate=cfg.learning_rate, generator=g)
+    diff = upd = 0.0
+    for n, m in step3.items():
+        diff += float((state.params[n].cpu() - m).double().square().sum())
+        upd += float((m - snap['params'][n]).double().square().sum())
+    worst = math.sqrt(diff / upd)
+    log(f'train_sr resumed at step 2: step-3 masters off the continued '
+        f'run by {worst:.3e} of its step-3 update (tol {RESUME_TOL}); loss '
+        f'{resumed_rows[0]["total_loss"]:.6f} vs {rows[2]["total_loss"]:.6f}')
+    assert state.step == 3 and resumed_rows[0]['step'] == 3
+    assert worst <= RESUME_TOL, worst
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # each step's seconds without its checkpoint write (steps 1 and 2) and
+    # the host copy of the state (step 3)
+    secs = [r['sec_per_step'] - save_s.get(r['step'], 0.0)
+            - (snap['seconds'] if r['step'] == 3 else 0.0) for r in rows]
+    log(f'train_sr loop [1, 8 frames of 720x1280 -> 90x160 latents, '
+        f'frequency loss, bf16 + fp32 masters]: seconds per step '
+        f'{[round(x, 3) for x in secs]} (the first with the warm-up; '
+        f'checkpoint writes {save_s} s taken off), peak {peak_gb:.2f} GB')
+    return dict(sec_per_step=secs, median_s=statistics.median(secs[1:]),
+                checkpoint_s=save_s, peak_gb=peak_gb, resume_rel_err=worst,
+                rows=rows, launches=counts[-1])
+
+
+# --------------------------------------------------------------------------
 # phase 6: the CogVideoX SR path at full width
 
 
@@ -2273,6 +2574,268 @@ def run_t2v(dev, models) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 6b: train_cog's loop at full width
+
+
+# one Cog train step's kernels (batch 1, 7 latent frames of 60x90, 9680
+# tokens): the 42 DiT layers run forward and again in their remat
+# recompute (K9 on q and k, K2 `with_l`, K10 three times each), K3 once a
+# layer in the backward, the two final norms once; T5 and the causal VAE
+# launch none, and no K1 runs under grad (tests/test_torch_cog_train.py
+# derives these on the CPU). K9's backward (a plain recompute) runs once
+# for each of its forward launches outside the recompute.
+COG_TRAIN_STEP_LAUNCHES = {'qk_ln_rope': 2 * 84, 'flash_packed_lse': 2 * 42,
+                           'flash_bwd': 42, 'fused_ln': 2 * 42 * 3 + 2,
+                           'flash_packed': 0}
+COG_TRAIN_K9_BACKWARDS = 84
+COG_TRAIN_TIMED_STEPS = 3
+
+
+def fingerprint(p) -> int:
+    """An exact integer fingerprint of a tensor's bits (its 16- or 32-bit
+    words, each weighted by its position mod 65521 plus 1), to check that a
+    parameter did or did not change without holding a copy of it."""
+    import torch
+    words = p.detach().reshape(-1).view(
+        torch.int16 if p.element_size() == 2 else torch.int32).long()
+    w = torch.arange(words.numel(), device=p.device) % 65521 + 1
+    return int((words * w).sum())
+
+
+def run_train_cog_cli(dev, models, profile: str | None = None) -> dict:
+    """cli/train_cog.py's loop (train_loop over make_cog_trainer) at full
+    width: CogVideoDiT(lora_rank=512) with LIEM (42 x 3072, 48 heads) made
+    on the card with seeded random bf16 weights (its zero-init LoRA B and
+    heads made non-zero, as converted weights are, so that every gradient
+    flows) beside phase 6's T5-XXL and causal VAE; synthetic 25-frame
+    480x720 triplets (the CLI's defaults: 7 latent frames, 9680 tokens),
+    batch 1; one warm-up step and COG_TRAIN_TIMED_STEPS timed ones, then
+    one step with the frequency loss (pred-x0 decoded in one window of 7
+    latent frames; at 9 frames if that does not fit the card)."""
+    import os
+    import statistics
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.cli import train_cog, train_sr
+    from star_tpu_torch.models.dit.dit import CogVideoDiT
+    from star_tpu_torch.models.t5.tokenizer import default_t5_tokenizer
+    from star_tpu_torch.ops import qk_ln_rope
+    from star_tpu_torch.pipeline.build import _init_random
+    from star_tpu_torch.train.cog_trainer import (CogTrainConfig,
+                                                  cog_is_trainable)
+
+    models.dit = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dit, = _init_random([lambda: CogVideoDiT(lora_rank=512)], 2,
+                        torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        for mod in dit.modules():
+            if getattr(mod, 'zero_init', False):
+                for p in mod.parameters(recurse=False):
+                    fan_in = p[0].numel() if p.ndim > 1 else 1
+                    p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                            * (0.1 / math.sqrt(fan_in)))
+    torch.cuda.synchronize()
+    models.dit = dit
+    init_s = time.perf_counter() - t0
+    tokenizer = default_t5_tokenizer(allow_fallback=True)
+
+    step_ms = []
+
+    def loop(cfg, samples, steps, time_steps=False):
+        """train_loop over a fresh trainer; returns (state, rows, launches
+        of each step, K9 backwards of each step, step_fn, make_batch). With
+        time_steps, CUDA events around each train step append its ms to
+        step_ms."""
+        state, step_fn, make_batch = train_cog.make_cog_trainer(
+            models, cfg, dev, g, tokenizer)
+        rows, counts, backs = [], [], []
+
+        def timed(st, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(st, batch)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            return out
+
+        def write_row(row):
+            torch.cuda.synchronize()
+            counts.append(ops.launch_counts())
+            backs.append(qk_ln_rope.BACKWARDS)
+            ops.reset_launch_counts()
+            rows.append(row)
+        ops.reset_launch_counts()
+        state = train_sr.train_loop(
+            timed if time_steps else step_fn, state, make_batch,
+            lambda: iter(samples), start_step=0, max_train_steps=steps,
+            global_batch=1, checkpoints=None, write_row=write_row,
+            learning_rate=cfg.learning_rate, generator=g)
+        return state, rows, counts, backs, step_fn, make_batch
+
+    named = dict(dit.named_parameters())
+    samples = synthetic_triplets(2, 25, 480, 720, seed=4)
+    # the frozen parameters' bits, and the masters' (fp32 copies of the
+    # trainable ones) as make_cog_train_state will take them
+    before = {n: fingerprint(p.float() if cog_is_trainable(n) else p)
+              for n, p in named.items()}
+    gc.collect()
+    gc.freeze()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        state, rows, counts, backs, step_fn, make_batch = loop(
+            CogTrainConfig(freq_loss=False), samples,
+            1 + COG_TRAIN_TIMED_STEPS, time_steps=True)
+    finally:
+        gc.unfreeze()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_train = sum(m.numel() for m in state.params.values())
+    log(f'Cog train (LoRA 512, 42 x 3072, random bf16): {n_train} '
+        f'trainable (fp32 masters), built in {init_s:.1f} s; steps '
+        + '; '.join(f'{ms:.1f} ms (loop {r["sec_per_step"]:.3f} s, loss '
+                    f'{r["total_loss"]:.5f}, grad_norm {r["grad_norm"]:.5f})'
+                    for ms, r in zip(step_ms, rows))
+        + f'; launches {counts[-1]}; K9 backwards {backs}')
+    for i, (row, c, b) in enumerate(zip(rows, counts, backs)):
+        assert set(row) == TRAIN_COG_ROW_KEYS, sorted(row)
+        assert all(math.isfinite(v) for v in row.values()), row
+        assert row['grad_norm'] > 0, row
+        assert_launches(f'Cog train step {i + 1}', c,
+                        COG_TRAIN_STEP_LAUNCHES)
+        assert b == COG_TRAIN_K9_BACKWARDS, (i, b)
+    frozen_changed = [n for n, p in named.items() if n not in state.params
+                      and fingerprint(p) != before[n]]
+    unmoved = [n for n, m in state.params.items()
+               if fingerprint(m) == before[n]]
+    assert not frozen_changed, f'frozen parameters changed: ' \
+        f'{frozen_changed[:5]}'
+    assert not unmoved, f'masters that did not move: {unmoved[:5]}'
+    timed_ms = step_ms[1:]
+    res = dict(step_ms=statistics.median(timed_ms), steps_ms=step_ms,
+               loop_s=[r['sec_per_step'] for r in rows], peak_gb=peak_gb,
+               init_s=init_s, trainable=n_train, launches=counts[-1],
+               k9_backwards=backs[-1], losses=rows[-1])
+    log(f'Cog train step [1, 7 x 60 x 90 latents, 9680 tokens, remat, '
+        f'bf16 + fp32 masters]: median {res["step_ms"]:.1f} ms of '
+        f'{[round(x, 1) for x in timed_ms]} (spread '
+        f'{max(timed_ms) - min(timed_ms):.1f} ms); loop seconds '
+        f'{[round(x, 3) for x in res["loop_s"]]}; peak {peak_gb:.2f} GB; '
+        f'{n_train} masters all moved, frozen bit-identical')
+    if profile:
+        root, ext = os.path.splitext(profile)
+        batch = make_batch(samples[:1])
+
+        def one_step():
+            nonlocal state
+            state, _ = step_fn(state, batch)
+        res['profile'] = profile_step(
+            one_step, f'{root}_cog_train{ext or ".txt"}', gemm_sources=True,
+            ranges=('qk_ln_rope_backward',))
+        del batch
+    del state, step_fn, make_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step with the frequency loss: the single-window decode
+    freq = dict(frames=25)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        _, frows, fcounts, fbacks, *_ = loop(CogTrainConfig(), samples[:1], 1)
+    except torch.cuda.OutOfMemoryError as e:
+        # a finding, not a failure: the step runs again at 9 frames, with
+        # the cut recorded beside its numbers
+        freq = dict(frames=9, oom_at_25=str(e).splitlines()[0])
+    if freq['frames'] == 9:
+        log(f'Cog train step with the frequency loss at 25 frames does not '
+            f'fit the card ({freq["oom_at_25"]}); again at 9 frames')
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, frows, fcounts, fbacks, *_ = loop(
+            CogTrainConfig(), synthetic_triplets(1, 9, 480, 720, seed=6), 1)
+    freq.update(peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                loop_s=frows[0]['sec_per_step'], row=frows[0])
+    assert set(frows[0]) == TRAIN_COG_FREQ_ROW_KEYS, sorted(frows[0])
+    assert all(math.isfinite(v) for v in frows[0].values()), frows[0]
+    # the decode launches no kernel: the same launches as without it
+    assert_launches('Cog train step with the frequency loss', fcounts[0],
+                    COG_TRAIN_STEP_LAUNCHES)
+    assert fbacks[0] == COG_TRAIN_K9_BACKWARDS
+    log(f'Cog train step with the frequency loss ({freq["frames"]} frames, '
+        f'one-window decode): loop {freq["loop_s"]:.3f} s, peak '
+        f'{freq["peak_gb"]:.2f} GB; ' + ' '.join(
+            f'{k} {v:.5g}' for k, v in frows[0].items()))
+    res['freq'] = freq
+    models.dit = None
+    del dit, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 8: make_paired_data's per-clip work on the card
+
+
+def run_make_pairs(dev) -> dict:
+    """cli/make_paired_data.py's per-clip function on one synthetic clip at
+    the CLI's defaults (32 frames of 720x1280, frame_interval already
+    applied), recipe default and then mid, the codec stage on (PyAV is not
+    on the card's machine: the device-side codec proxy); an in-memory saver
+    that is the first to copy to the host. No kernel of the port runs."""
+    import numpy as np
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.cli import make_paired_data
+    r = np.random.RandomState(8)
+    yy, xx = np.mgrid[0:720, 0:1280].astype(np.float32)
+    frames = np.stack([np.stack([np.sin(xx / (50 + 11 * c) + t / 4)
+                                 * np.cos(yy / (40 + 7 * c)) for c in
+                                 range(3)], -1) * 100 + 128
+                       + r.uniform(-20, 20, (720, 1280, 3))
+                       for t in range(32)]).clip(0, 255).astype(np.uint8)
+    saved, res = {}, {}
+
+    def save(name, text, fps, gt, lq):
+        assert gt.is_cuda and lq.is_cuda, 'a tensor left the card early'
+        saved[name] = (gt.cpu().numpy(), lq.cpu().numpy())
+        return name
+    for recipe in ('default', 'mid'):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gt, lq, lq01 = make_paired_data.make_pair(
+            frames, index=0, frame_interval=1, seed=1, recipe=recipe,
+            device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        assert lq01.is_cuda and gt.is_cuda and lq.is_cuda
+        assert tuple(lq01.shape) == (32, 180, 320, 3), lq01.shape
+        save(recipe, 'a clip', 16.0, gt, lq)
+        g_np, l_np = saved[recipe]
+        assert g_np.shape == l_np.shape == (32, 720, 1280, 3)
+        assert g_np.dtype == l_np.dtype == np.uint8
+        assert float(l_np.std()) > 0 and bool(torch.isfinite(lq01).all())
+        assert np.array_equal(g_np, frames), 'gt is not the clip'
+        assert not launches, launches
+        res[recipe] = dict(seconds=secs, lq_mean=float(l_np.mean()),
+                           lq_std=float(l_np.std()),
+                           lq_vs_gt=float(np.abs(l_np.astype(np.float32)
+                                                 - g_np).mean()))
+        log(f'make_paired_data pair, recipe {recipe}, 32 x 720 x 1280 with '
+            f'the codec proxy: {secs:.2f} s; LQ [32,180,320,3] -> '
+            f'[32,720,1280,3] uint8, mean |lq - gt| '
+            f'{res[recipe]["lq_vs_gt"]:.2f}')
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2282,8 +2845,9 @@ def main() -> int:
     ap.add_argument('--profile', metavar='FILE',
                     help='also trace one CFG step with torch.profiler and '
                     'write its device time by kernel to FILE, one train '
-                    'step to FILE with _train before its extension, and '
-                    'one DiT CFG step to FILE with _dit before it')
+                    'step to FILE with _train before its extension, one '
+                    'DiT CFG step to FILE with _dit before it, and one Cog '
+                    'train step to FILE with _cog_train before it')
     args = ap.parse_args()
 
     import torch
@@ -2309,10 +2873,12 @@ def main() -> int:
     small = check_small_models(dev)
     small['train'] = check_small_train(dev)
     small['cog'] = check_small_cog(dev)
+    small['cog_train'] = check_small_cog_train(dev)
     run = run_pipeline(dev)
     served = run_serve(dev, run['pipe'], run['launches'])
     step = time_cfg_step(dev, run['models'], args.profile)
     train = run_train(dev, run['models'], args.profile)
+    train_cli = run_train_sr_cli(dev, run['models'])
     # the I2VGen models go before the CogVideoX ones come, so that the Cog
     # clip's peak memory is its own
     del run['models'], run['pipe']
@@ -2326,6 +2892,9 @@ def main() -> int:
                              args.profile)
     t2v = run_t2v(dev, cog_models)
     t2v_step = time_dit_step(dev, t2v.pop('dit'), (2, 13, 60, 90, 16))
+    cog_train = run_train_cog_cli(dev, cog_models, args.profile)
+    del cog_models
+    pairs = run_make_pairs(dev)
     for name, rec in results.items():
         # each kernel's launches on the path it belongs to: the training
         # forward and backward in the train step, K9 in the Cog clip, the
@@ -2338,6 +2907,8 @@ def main() -> int:
         rec['launches_cog_clip'] = cog['launches'][name]
         rec['launches_per_dit_step'] = dit_step['launches'].get(name, 0)
         rec['launches_t2v_clip'] = t2v['launches'][name]
+        rec['launches_per_sr_cli_step'] = train_cli['launches'][name]
+        rec['launches_per_cog_train_step'] = cog_train['launches'][name]
     log('summary ' + json.dumps(dict(
         small_model_errors=small, clip_s=run['clip_s'],
         unet_calls=run['unet_calls'],
@@ -2356,7 +2927,19 @@ def main() -> int:
         t2v_dit_calls=t2v['dit_calls'], t2v_stages=t2v['stages'],
         t2v_init_s=t2v['init_s'], t2v_peak_gb=t2v['peak_gb'],
         t2v_out_mean=t2v['out_mean'], t2v_out_std=t2v['out_std'],
-        t2v_dit_step_ms=t2v_step['ms'])))
+        t2v_dit_step_ms=t2v_step['ms'],
+        train_sr_cli_sec_per_step=train_cli['sec_per_step'],
+        train_sr_cli_checkpoint_s=train_cli['checkpoint_s'],
+        train_sr_cli_peak_gb=train_cli['peak_gb'],
+        train_sr_cli_resume_rel_err=train_cli['resume_rel_err'],
+        cog_train_step_ms=cog_train['step_ms'],
+        cog_train_steps_ms=cog_train['steps_ms'],
+        cog_train_loop_s=cog_train['loop_s'],
+        cog_train_peak_gb=cog_train['peak_gb'],
+        cog_train_init_s=cog_train['init_s'],
+        cog_train_k9_backwards=cog_train['k9_backwards'],
+        cog_train_profile=cog_train.get('profile'),
+        cog_train_freq=cog_train['freq'], make_pairs=pairs)))
     print(json.dumps({'kernels': list(results.values())}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

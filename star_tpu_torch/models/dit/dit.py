@@ -16,8 +16,11 @@ prescaled; the stream's LayerNorms are K10 (fused_ln). The RoPE tables are
 host numpy in the half-split basis; K9 takes them as [S, 64] rows
 (identity at text and tail rows) instead of the JAX package's head-tiled
 [S, H*64] copy. The JAX package scans one layer over stacked
-parameters; here the layers are an nn.ModuleList (`layers`), and
-convert/from_flax.py unstacks the scanned tree into it.
+parameters, rematerialised in the backward; here the layers are an
+nn.ModuleList (`layers`), and convert/from_flax.py unstacks the scanned
+tree into it. With `remat` (the default) and grad mode on, each layer runs
+under torch.utils.checkpoint (non-reentrant): the backward recomputes it
+from its saved input. Under no_grad the layers run as plain calls.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import dot_product_attention_packed
 from ...ops.fused_ln import fused_ln
@@ -233,9 +238,10 @@ class CogVideoDiT(nn.Module):
                  num_heads: int = 48, patch_size: int = 2,
                  latent_channels: int = 16, text_hidden_size: int = 4096,
                  text_length: int = 226, time_embed_dim: int = 512,
-                 lora_rank: int = 0, liem: bool = True):
+                 lora_rank: int = 0, liem: bool = True, remat: bool = True):
         super().__init__()
         c, p = hidden_size, patch_size
+        self.remat = remat
         self.hidden_size, self.num_heads, self.patch_size = c, num_heads, p
         self.latent_channels, self.text_length = latent_channels, text_length
         in_channels = latent_channels * (2 if liem else 1)
@@ -291,8 +297,13 @@ class CogVideoDiT(nn.Module):
         if s_pad != s_real:
             h = F.pad(h, (0, 0, 0, s_pad - s_real))
         cos, sin = self.rope(t, hp, wp, s_pad, x.device)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            h = layer(h, emb_act, cos, sin, (t, hp, wp))
+            if remat:
+                h = checkpoint(layer, h, emb_act, cos, sin, (t, hp, wp),
+                               use_reentrant=False)
+            else:
+                h = layer(h, emb_act, cos, sin, (t, hp, wp))
 
         # both final norms run over the whole stream (one K10 each) and the
         # image rows are taken after

@@ -13,9 +13,9 @@ wrappers, their plain PyTorch versions and launch counters:
   fused_ln              K10 (LayerNorm, optionally LIEM-gated) and K11
                         (residual add + [LIEM gate +] LayerNorm)
 
-K1/K2-d64 (with K3), K4, K5, K10 and K11 are differentiable through
-torch.autograd.Function; K2-d512, K6, K7, K8 and K9 have no backward
-and raise under grad.
+K1/K2-d64 (with K3), K4, K5, K9, K10 and K11 are differentiable through
+torch.autograd.Function; K2-d512, K6, K7 and K8 have no backward and
+raise under grad.
 """
 
 from . import (conv3x3, flash_attention, fused_ln, fused_temporal_conv,
@@ -44,6 +44,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch count, and K9's count of backward calls."""
     flash_attention.PACKED_LAUNCHES = 0
     flash_attention.LSE_LAUNCHES = 0
     flash_attention.BWD_LAUNCHES = 0
@@ -54,5 +55,6 @@ def reset_launch_counts() -> None:
     upsample_conv.UPSAMPLE_LAUNCHES = 0
     upsample_conv.INTERLEAVE_LAUNCHES = 0
     qk_ln_rope.LAUNCHES = 0
+    qk_ln_rope.BACKWARDS = 0
     fused_ln.LN_LAUNCHES = 0
     fused_ln.RESID_LN_LAUNCHES = 0

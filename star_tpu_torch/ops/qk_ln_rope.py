@@ -12,8 +12,12 @@ rows tiled across heads ([S, H*D]); the port never tiles them.
 
 A CUDA tensor goes through csrc/qk_ln_rope.cu (D=64, bf16, contiguous;
 anything else raises); a CPU tensor through the plain version, the JAX
-package's `qk_ln_rope_reference`. The kernel has no backward: under grad
-its launcher raises.
+package's `qk_ln_rope_reference`. Under grad the call is an autograd
+Function: its forward is the kernel (the plain version on the CPU), its
+backward differentiates the plain version recomputed in fp32 from the saved
+inputs, as jax.grad differentiates `qk_ln_rope_reference` (the JAX package
+defines no backward of its own). Gradients go to x, scale and bias; the
+cos/sin tables take none. The launcher itself still refuses grad.
 """
 
 from __future__ import annotations
@@ -21,10 +25,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .fused_ln import _recompute_grads
 
 LOG2E = 1.4426950408889634
 
 LAUNCHES = 0
+# calls of the autograd backward (a plain recompute, not a kernel launch)
+BACKWARDS = 0
 
 
 def qk_ln_rope_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -77,11 +84,44 @@ def _launch(x, scale, bias, cos, sin, num_heads: int, eps: float,
     return out
 
 
-def qk_ln_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               cos: torch.Tensor, sin: torch.Tensor, num_heads: int,
-               eps: float = 1e-6, fold_scale: float = 1.0) -> torch.Tensor:
-    """K9. x [B, S, H*D] -> LayerNormed and rotated [B, S, H*D]."""
-    if x.is_cuda:
+def _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale, plain=False):
+    """K9 for a CUDA tensor unless `plain`, else the plain version."""
+    if x.is_cuda and not plain:
         return _launch(x, scale, bias, cos, sin, num_heads, eps, fold_scale)
     return qk_ln_rope_plain(x, scale, bias, cos, sin, num_heads, eps,
                             fold_scale)
+
+
+class _QkLnRope(torch.autograd.Function):
+    """K9 forward (the plain version on the CPU, or with `plain`, which the
+    tests use to hold the Function itself); the backward recomputes the
+    plain version from the saved inputs and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, cos, sin, num_heads, eps, fold_scale,
+                plain):
+        ctx.save_for_backward(x, scale, bias, cos, sin)
+        ctx.args = (num_heads, eps, fold_scale)
+        return _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale,
+                    plain)
+
+    @staticmethod
+    def backward(ctx, ct):
+        global BACKWARDS
+        BACKWARDS += 1
+        with torch.profiler.record_function('qk_ln_rope_backward'):
+            grads = _recompute_grads(
+                ctx, lambda x, sc, bi, cos, sin: qk_ln_rope_plain(
+                    x, sc, bi, cos, sin, *ctx.args), [ct])
+        return (*grads[:3], None, None, None, None, None, None)
+
+
+def qk_ln_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               cos: torch.Tensor, sin: torch.Tensor, num_heads: int,
+               eps: float = 1e-6, fold_scale: float = 1.0) -> torch.Tensor:
+    """K9. x [B, S, H*D] -> LayerNormed and rotated [B, S, H*D].
+    Differentiable in x, scale and bias (plain recompute backward)."""
+    if _build.needs_grad(x, scale, bias):
+        return _QkLnRope.apply(x, scale, bias, cos, sin, num_heads, eps,
+                               fold_scale, False)
+    return _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale)

@@ -52,9 +52,11 @@ def is_trainable(name: str) -> bool:
     return ('controlnet' in name) or ('local1' in name) or ('local2' in name)
 
 
-def trainable_mask(model: nn.Module) -> dict[str, bool]:
+def trainable_mask(model: nn.Module,
+                   trainable: Callable[[str], bool] = is_trainable
+                   ) -> dict[str, bool]:
     """Parameter name (the flax path with '.') -> trainable."""
-    return {n: is_trainable(n) for n, _ in model.named_parameters()}
+    return {n: trainable(n) for n, _ in model.named_parameters()}
 
 
 def stop_frozen_grads(model: nn.Module,
@@ -133,13 +135,15 @@ def make_optimizer(cfg: TrainConfig,
     return Optimizer(cfg, params)
 
 
-def make_train_state(cfg: TrainConfig,
-                     model: nn.Module) -> tuple[TrainState, Optimizer]:
-    """fp32 masters of the model's trainable set (from their current
-    values), the optimizer over them, and the model made ready to train:
-    frozen parameters without grad, trainable ones in the compute dtype
-    (the frozen set's dtype) with grad."""
-    mask = trainable_mask(model)
+def make_train_state(cfg: TrainConfig, model: nn.Module,
+                     trainable: Callable[[str], bool] = is_trainable
+                     ) -> tuple[TrainState, Optimizer]:
+    """fp32 masters of the model's trainable set (the parameters whose
+    names `trainable` accepts, from their current values), the optimizer
+    over them, and the model made ready to train: frozen parameters
+    without grad, trainable ones in the compute dtype (the frozen set's
+    dtype) with grad."""
+    mask = trainable_mask(model, trainable)
     named = dict(model.named_parameters())
     dtypes = {p.dtype for n, p in named.items() if not mask[n]}
     if len(dtypes) != 1:
@@ -155,6 +159,27 @@ def make_train_state(cfg: TrainConfig,
     tx = make_optimizer(cfg, masters)
     ema = init_ema(masters) if cfg.ema_decay > 0 else None
     return TrainState(0, masters, tx, ema), tx
+
+
+def apply_update(cfg, state: TrainState, tx: Optimizer,
+                 live: dict[str, nn.Parameter], metrics: dict
+                 ) -> tuple[TrainState, dict]:
+    """Step the masters by the gradients in the module's trainable
+    parameters `live` (zero where none reached), copy them back into the
+    module, update the EMA; metrics['grad_norm'] becomes the optimizer's
+    pre-clip norm."""
+    grads = {n: torch.zeros_like(state.params[n]) if p.grad is None
+             else p.grad for n, p in live.items()}
+    metrics['grad_norm'] = tx.update(grads, state.step)
+    with torch.no_grad():
+        for n, p in live.items():
+            p.grad = None
+            p.copy_(state.params[n])
+    ema = state.ema_params
+    if cfg.ema_decay > 0 and ema is not None:
+        ema = update_ema(ema, state.params, cfg.ema_decay)
+    return TrainState(state.step + 1, state.params, state.opt_state,
+                      ema), metrics
 
 
 def make_train_step(cfg: TrainConfig, model: nn.Module,
@@ -212,18 +237,7 @@ def make_train_step(cfg: TrainConfig, model: nn.Module,
                    t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None):
         metrics = loss_and_grads(batch, generator, t=t, noise=noise)
-        grads = {n: torch.zeros_like(state.params[n]) if p.grad is None
-                 else p.grad for n, p in live.items()}
-        metrics['grad_norm'] = tx.update(grads, state.step)
-        with torch.no_grad():
-            for n, p in live.items():
-                p.grad = None
-                p.copy_(state.params[n])
-        ema = state.ema_params
-        if cfg.ema_decay > 0 and ema is not None:
-            ema = update_ema(ema, state.params, cfg.ema_decay)
-        return TrainState(state.step + 1, state.params, state.opt_state,
-                          ema), metrics
+        return apply_update(cfg, state, tx, live, metrics)
 
     @torch.no_grad()
     def preview_x0(batch, generator: Optional[torch.Generator] = None,

@@ -136,6 +136,65 @@ def test_clis_start_and_answer_help_without_jax():
         assert flag in out.stdout, flag
 
 
+TRAINING_MODULES = (
+    'star_tpu_torch.cli.make_paired_data', 'star_tpu_torch.cli.train_sr',
+    'star_tpu_torch.cli.train_cog', 'star_tpu_torch.data.captions',
+    'star_tpu_torch.data.dataset', 'star_tpu_torch.data.webds',
+    'star_tpu_torch.data.degradation', 'star_tpu_torch.train.cog_trainer',
+    'star_tpu_torch.train.checkpoint', 'star_tpu_torch.utils.metrics')
+
+
+def test_training_entry_points_need_a_card_unless_told_cpu(monkeypatch,
+                                                           tmp_path):
+    """make_paired_data, train_sr and train_cog refuse without a card
+    before they read a file or build a model; with --device cpu they go on
+    (here to the missing CSV or data)."""
+    from star_tpu_torch.cli import make_paired_data, train_cog, train_sr
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    csv = str(tmp_path / 'rows.csv')
+    data = ['--data_root', str(tmp_path / 'none'), '--output_dir',
+            str(tmp_path / 'out'), '--allow_random_weights']
+    with pytest.raises(RuntimeError, match='CUDA'):
+        make_paired_data.main(['--csv', csv, '--save_dir', str(tmp_path)])
+    for cli in (train_sr, train_cog):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            cli.main(data)
+    assert not (tmp_path / 'out').exists()
+    with pytest.raises(FileNotFoundError, match='rows.csv'):
+        make_paired_data.main(['--csv', csv, '--save_dir', str(tmp_path),
+                               '--device', 'cpu'])
+
+
+def test_training_modules_import_no_codec_or_html_parser():
+    """The training CLIs answer --help in a process with no jax, and the
+    new training and data modules import nothing of jax, star_tpu, tools
+    or orbax, nor cv2, bs4 or av, when imported (the card's machine has
+    none of the last three; they are imported where a file is decoded or
+    a caption cleaned)."""
+    import subprocess
+    import sys
+    code = (
+        'import importlib, runpy, sys\n'
+        'for m in ' + repr(TRAINING_MODULES) + ':\n'
+        '    importlib.import_module(m)\n'
+        'for m in ' + repr(TRAINING_MODULES[:3]) + ':\n'
+        '    sys.argv = [m, "--help"]\n'
+        '    try:\n'
+        '        runpy.run_module(m, run_name="__main__")\n'
+        '    except SystemExit as e:\n'
+        '        assert e.code == 0, (m, e.code)\n'
+        'bad = sorted(k for k in sys.modules if k.split(".")[0] in '
+        + repr(FORBIDDEN + ('cv2', 'bs4', 'av')) + ')\n'
+        'assert not bad, bad\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    for flag in ('--csv', '--recipe', '--no_codec', '--image_data',
+                 '--frozen_bf16', '--sample_every', '--lora_rank',
+                 '--freq_loss', '--clean_captions', '--resume', '--device'):
+        assert flag in out.stdout, flag
+
+
 def _imports(nodes):
     """The top-level package of every import under the AST nodes."""
     for node in nodes:
@@ -585,11 +644,47 @@ def test_qk_ln_rope_launches_for_cuda_tensors_and_plain_for_cpu(monkeypatch):
 
 def test_qk_ln_rope_refuses_grad():
     """K9 has no backward kernel: on CUDA tensors that require grad, with
-    grad mode on, its launcher raises before building anything."""
+    grad mode on, its launcher raises before building anything (the
+    wrapper goes through the autograd Function instead, below)."""
     qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
     x = _fake(torch.zeros(1, 5, 128, dtype=torch.bfloat16), True)
     with pytest.raises(RuntimeError, match='no backward kernel'):
-        qr.qk_ln_rope(*_k9_args(x))
+        qr._launch(*_k9_args(x), 1e-6, 1.0)
+
+
+def test_qk_ln_rope_under_grad_launches_forward_and_recomputes_plain(
+        monkeypatch):
+    """An input requiring grad goes through K9's autograd Function: the
+    kernel launches in the forward (under the Function, where grad mode
+    is off, so the launcher's refusal does not fire), the plain version
+    runs only in the backward, and the gradients reach x, scale and bias
+    but not the tables; the backward is counted in BACKWARDS, not in the
+    launches."""
+    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
+    events, phase = [], ['forward']
+
+    def launch(x, *a):
+        assert not qr._build.needs_grad(x), 'the launcher would refuse'
+        events.append('k9')
+        return _fake(torch.zeros(x.shape))
+    monkeypatch.setattr(qr, '_launch', launch)
+    real = qr.qk_ln_rope_plain
+
+    def plain(*a, **k):
+        assert phase[0] == 'backward', 'the plain version ran in the forward'
+        events.append('plain')
+        return real(*a, **k)
+    monkeypatch.setattr(qr, 'qk_ln_rope_plain', plain)
+    x = _fake(torch.randn(1, 5, 128), requires_grad=True)
+    sc, bi = torch.ones(64, requires_grad=True), torch.zeros(
+        64, requires_grad=True)
+    cos, sin = torch.ones(5, 64), torch.zeros(5, 64)
+    qr.BACKWARDS = 0
+    out = qr.qk_ln_rope(x, sc, bi, cos, sin, 2, fold_scale=0.5)
+    phase[0] = 'backward'
+    grads = torch.autograd.grad(out.float().sum(), (x, sc, bi))
+    assert events == ['k9', 'plain'] and qr.BACKWARDS == 1
+    assert [g.shape for g in grads] == [x.shape, (64,), (64,)]
 
 
 @pytest.mark.parametrize('case', ['cpu', 'fp32', 'strided', 'head_dim_32',

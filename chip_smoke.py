@@ -2371,7 +2371,9 @@ def run_train_sr_cli(dev, models) -> dict:
             assert torch.equal(blob['opt']['state'][i][k], v), (i, k)
     del blob
     step3 = {n: m.to('cpu', copy=True) for n, m in state.params.items()}
-    # resume from step 2 to step 3, as --resume does
+    # resume from step 2 to step 3, as --resume does; the two samples are
+    # one epoch, so the data past steps 1-2 starts a new one (the CLIs'
+    # datasets skip to it)
     state = ckpt.restore(2, state, models.unet, g)
     ops.reset_launch_counts()
     resumed_rows = []

@@ -93,10 +93,10 @@ def make_pair(frames: np.ndarray, *, index: int, num_frames: int = 32,
     gt01 = torch.from_numpy(np.ascontiguousarray(frames)).to(
         device).float() / 255.0
     lq01, _ = degrade_video(gt01, scale=scale, seed=seed + index * 7919,
-                            use_codec=use_codec, recipe=recipe, draw=draw)
+                            use_codec=use_codec, recipe=recipe,
+                            device=gt01.device, draw=draw)
     # x(scale) cubic upsample of LQ (make_paired_data.py:86-96)
-    lq_up = torch.clamp(resize_jax(lq01, height, width, 'cubic',
-                                   antialias=True), 0, 1)
+    lq_up = torch.clamp(resize_jax(lq01, height, width, 'cubic'), 0, 1)
     return ((gt01 * 255).to(torch.uint8), (lq_up * 255).to(torch.uint8),
             lq01)
 

@@ -195,6 +195,7 @@ def main(argv=None):
     ds = CogPairedCaptionDataset(args.data_root, args.num_frames,
                                  seed=args.seed,
                                  clean_captions=args.clean_captions)
+    ds.skip(start_step * args.batch_size)
     make_it = lambda: PrefetchIterator(ds, depth=2 * args.batch_size)
     return train_loop(
         step_fn, state, make_batch, make_it, start_step=start_step,

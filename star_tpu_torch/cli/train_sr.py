@@ -149,13 +149,12 @@ def train_loop(step_fn: Callable, state, make_batch: Callable,
     manager's policy says so) and the metrics row, the JAX CLI's keys:
     each metric, step, lr and sec_per_step (host seconds since the
     previous row, the batch's load and encode included). A run resumed at
-    start_step first reads past the samples of the finished steps, so that
-    it sees the data a continued run sees (the JAX CLIs restart their data
-    and key). Returns the state after the last step."""
+    start_step is handed data already past the samples of the finished
+    steps (the datasets' skip), so that it sees the data a continued run
+    sees (the JAX CLIs restart their data and key). Returns the state
+    after the last step."""
     logger = get_logger()
     it = make_it()
-    if start_step:
-        _, it = collect_samples(it, make_it, start_step * global_batch)
     t_last = time.time()
     for step in range(start_step, max_train_steps):
         samples, it = collect_samples(it, make_it, global_batch)
@@ -280,6 +279,7 @@ def main(argv=None):
     else:
         ds = PairedCaptionVideoDataset(args.data_root, args.num_frames,
                                        seed=args.seed)
+    ds.skip(start_step * args.batch_size)
     # background-thread decode overlaps the device step (cv2 releases the
     # GIL)
     make_it = lambda: PrefetchIterator(ds, depth=2 * args.batch_size)

@@ -34,6 +34,7 @@ class PairedCaptionVideoDataset:
         self.null_text_ratio = null_text_ratio
         self.clean_captions = clean_captions
         self.rng = random.Random(seed)
+        self._pending: List[int] = []   # the rest of an epoch skip() cut
         lq_dir = os.path.join(root, 'lq')
         self.names = sorted(
             os.path.splitext(f)[0] for f in os.listdir(lq_dir)
@@ -62,11 +63,29 @@ class PairedCaptionVideoDataset:
         to11 = lambda x: (x.astype(np.float32) / 255.0 - 0.5) / 0.5
         return {'gt': to11(gt), 'lq': to11(lq), 'text': text}
 
-    def __iter__(self) -> Iterator[dict]:
+    def _shuffled(self) -> List[int]:
         order = list(range(len(self)))
         self.rng.shuffle(order)
+        return order
+
+    def __iter__(self) -> Iterator[dict]:
+        order, self._pending = self._pending or self._shuffled(), []
         for i in order:
             yield self[i]
+
+    def skip(self, n: int) -> None:
+        """Move past the next n samples with the draws that iterating
+        makes (each epoch's shuffle, each sample's caption draw) but no
+        file read, so that a resumed run sees what a continued one sees;
+        the next iteration starts with the rest of a part-read epoch."""
+        order = self._pending
+        while n:
+            order = order or self._shuffled()
+            k = min(n, len(order))
+            for _ in range(k):
+                self.rng.random()
+            order, n = order[k:], n - k
+        self._pending = order
 
 
 class CogPairedCaptionDataset(PairedCaptionVideoDataset):
@@ -120,6 +139,7 @@ class PairedCaptionImageDataset:
     def __init__(self, root: str, crop_size=(720, 1280)):
         self.root = root
         self.crop_size = crop_size
+        self._start = 0
         lq_dir = os.path.join(root, 'sr_bicubic')
         self.names = sorted(
             os.path.splitext(f)[0] for f in os.listdir(lq_dir)
@@ -152,8 +172,14 @@ class PairedCaptionImageDataset:
                 'text': ''}
 
     def __iter__(self) -> Iterator[dict]:
-        for i in range(len(self)):
+        start, self._start = self._start, 0
+        for i in range(start, len(self)):
             yield self[i]
+
+    def skip(self, n: int) -> None:
+        """Move past the next n samples (the order is fixed) without
+        reading them."""
+        self._start = (self._start + n) % len(self)
 
 
 def shard_for_process(items: List, process_index: int,

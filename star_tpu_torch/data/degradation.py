@@ -20,11 +20,12 @@ The split is the JAX package's:
   * the H.264/mpeg4 re-encode runs through PyAV when it imports, else
     through the device-side codec_proxy, as in the JAX package.
 
-`_resize` computes what jax.image.resize computes: separable weight
-matrices of the Keys cubic (a = -0.5) or triangle kernel at half-pixel
-centres, renormalised at the borders, widened by the ratio when an
-antialiased axis shrinks; F.interpolate's bicubic (a = -0.75, clamped
-borders) is another function. The noises draw from a torch.Generator;
+`_resize` computes what jax.image.resize computes: for 'bicubic' and
+'bilinear' separable weight matrices of the Keys cubic (a = -0.5) or
+triangle kernel at half-pixel centres, renormalised at the borders
+(F.interpolate's bicubic, a = -0.75 with clamped borders, is another
+function); for 'area', the antialiased linear resize, the port's
+ops.resize.resize_bilinear. The noises draw from a torch.Generator;
 their draws can be injected (the JAX package draws from threefry keys,
 which Philox cannot reproduce), and degrade_video takes a `draw` callable
 for that.
@@ -42,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.resize import resize_bilinear
+from ..utils.device import resolve_device
 from ..utils.logger import get_logger
 
 logger = get_logger()
@@ -325,20 +328,17 @@ def _triangle(x: np.ndarray) -> np.ndarray:
     return np.maximum(0.0, 1.0 - np.abs(x))
 
 
-def resize_weights(n_in: int, n_out: int, method: str,
-                   antialias: bool) -> np.ndarray:
-    """[n_in, n_out] fp32 weights of jax.image.resize along one axis
-    (jax._src.image.scale.compute_weight_mat, computed in fp32 as there):
-    half-pixel centres, the kernel widened by the ratio when an
-    antialiased axis shrinks, each column renormalised to sum to one."""
+def resize_weights(n_in: int, n_out: int, method: str) -> np.ndarray:
+    """[n_in, n_out] fp32 weights of jax.image.resize(..., antialias=False)
+    along one axis (jax._src.image.scale.compute_weight_mat, computed in
+    fp32 as there): half-pixel centres, each column renormalised to sum to
+    one."""
     kernel = {'cubic': _keys_cubic, 'linear': _triangle}[method]
     f32 = np.float32
     inv_scale = f32(1.0) / (f32(n_out) / f32(n_in))
-    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
     sample_f = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale \
         - f32(0.5)
-    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
-        / kernel_scale
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None])
     w = kernel(x).astype(f32)
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
@@ -347,18 +347,19 @@ def resize_weights(n_in: int, n_out: int, method: str,
     return np.where(inside[None, :], w, 0).astype(f32)
 
 
-def resize_jax(x: torch.Tensor, out_h: int, out_w: int, method: str,
-               antialias: bool) -> torch.Tensor:
-    """jax.image.resize(x, (..., out_h, out_w, C), method, antialias) of
-    x [..., H, W, C] fp32, method 'cubic' or 'linear': each axis whose size
-    changes is multiplied by its weight matrix (an axis that keeps its
-    size is left as it is, as there)."""
+def resize_jax(x: torch.Tensor, out_h: int, out_w: int,
+               method: str) -> torch.Tensor:
+    """jax.image.resize(x, (..., out_h, out_w, C), method, antialias=False)
+    of x [..., H, W, C] fp32, method 'cubic' or 'linear': each axis whose
+    size changes is multiplied by its weight matrix (an axis that keeps its
+    size is left as it is, as there). On an axis that grows antialiasing
+    changes nothing, so an upsample is also jax.image.resize's default."""
     h, w = x.shape[-3], x.shape[-2]
     mats = {}
     if out_h != h:
-        mats['h'] = resize_weights(h, out_h, method, antialias)
+        mats['h'] = resize_weights(h, out_h, method)
     if out_w != w:
-        mats['w'] = resize_weights(w, out_w, method, antialias)
+        mats['w'] = resize_weights(w, out_w, method)
     to = lambda a: torch.from_numpy(a).to(x.device)
     if 'h' in mats:
         x = torch.einsum('...hwc,hk->...kwc', x, to(mats['h']))
@@ -370,11 +371,11 @@ def resize_jax(x: torch.Tensor, out_h: int, out_w: int, method: str,
 def _resize(x: torch.Tensor, out_h: int, out_w: int,
             mode: str) -> torch.Tensor:
     if mode == 'bicubic':
-        return resize_jax(x, out_h, out_w, 'cubic', antialias=False)
+        return resize_jax(x, out_h, out_w, 'cubic')
     if mode == 'bilinear':
-        return resize_jax(x, out_h, out_w, 'linear', antialias=False)
+        return resize_jax(x, out_h, out_w, 'linear')
     # 'area' ~ antialiased linear downsample
-    return resize_jax(x, out_h, out_w, 'linear', antialias=True)
+    return resize_bilinear(x, out_h, out_w)
 
 
 def add_gaussian_noise(x: torch.Tensor, sigma: float, gray: bool,
@@ -608,16 +609,17 @@ def _stage_noise(y: torch.Tensor, st: StageParams, stage: int,
 
 def degrade_video(gt01, scale: int = 4, seed: int = 0,
                   use_codec: bool = True, recipe: str = 'default',
-                  device=None, draw: Optional[Draw] = None
+                  device='cuda', draw: Optional[Draw] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """gt01: [F, H, W, 3] in [0, 1] (a tensor, or numpy put on `device`)
-    -> (lq [F, H/scale, W/scale, 3], gt_usm), fp32 tensors on the frames'
-    device. Mirrors Degradation.forward_deg (degrade_video.py:149-192;
+    """gt01: [F, H, W, 3] in [0, 1] (a tensor or numpy, put on `device`,
+    the card unless device='cpu') -> (lq [F, H/scale, W/scale, 3],
+    gt_usm), fp32 tensors on `device`. Mirrors Degradation.forward_deg (degrade_video.py:149-192;
     recipe='mid' follows degrade_video_mid.py's stage-1 resize-to-final),
     all frames at once. The noises are drawn from a torch.Generator seeded
     with `seed`, or by `draw`."""
     p = sample_degradation_params(seed, recipe)
-    x = torch.as_tensor(gt01, dtype=torch.float32, device=device)
+    x = torch.as_tensor(gt01, dtype=torch.float32,
+                        device=resolve_device(device))
     f, ori_h, ori_w, _ = x.shape
     generator = None
     if draw is None:
@@ -708,18 +710,20 @@ def paired_random_crop(rng: np.random.RandomState, gt: torch.Tensor,
 
 
 def realesrgan_image_pair(gt01_img, scale: int = 4, gt_size: int = 256,
-                          seed: int = 0, device=None,
+                          seed: int = 0, device='cuda',
                           draw: Optional[Draw] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-image training pair per RealESRGAN_Deg_pipeline.Degradation:
     augment -> two-stage degradation (no codec stage) -> clamp/round ->
     paired random crop. gt01_img [H, W, 3] in [0,1] ->
-    (gt_crop, gt_usm_crop, lq_crop)."""
+    (gt_crop, gt_usm_crop, lq_crop), on `device` (the card unless
+    device='cpu')."""
     rng = np.random.RandomState(seed)
-    img = torch.as_tensor(gt01_img, dtype=torch.float32, device=device)
+    img = torch.as_tensor(gt01_img, dtype=torch.float32,
+                          device=resolve_device(device))
     (img,) = augment_paired(rng, img)
     lq, gt_usm = degrade_video(img[None], scale=scale, seed=seed,
-                               use_codec=False, draw=draw)
+                               use_codec=False, device=img.device, draw=draw)
     gt_c, lq_c = paired_random_crop(rng, torch.stack([img, gt_usm[0]]), lq,
                                     gt_size, scale)
     return gt_c[0], gt_c[1], lq_c[0]

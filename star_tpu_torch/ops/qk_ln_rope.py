@@ -84,26 +84,23 @@ def _launch(x, scale, bias, cos, sin, num_heads: int, eps: float,
     return out
 
 
-def _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale, plain=False):
-    """K9 for a CUDA tensor unless `plain`, else the plain version."""
-    if x.is_cuda and not plain:
+def _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale):
+    """K9 for a CUDA tensor, else the plain version."""
+    if x.is_cuda:
         return _launch(x, scale, bias, cos, sin, num_heads, eps, fold_scale)
     return qk_ln_rope_plain(x, scale, bias, cos, sin, num_heads, eps,
                             fold_scale)
 
 
 class _QkLnRope(torch.autograd.Function):
-    """K9 forward (the plain version on the CPU, or with `plain`, which the
-    tests use to hold the Function itself); the backward recomputes the
-    plain version from the saved inputs and differentiates it."""
+    """K9 forward (the plain version on the CPU); the backward recomputes
+    the plain version from the saved inputs and differentiates it."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, cos, sin, num_heads, eps, fold_scale,
-                plain):
+    def forward(ctx, x, scale, bias, cos, sin, num_heads, eps, fold_scale):
         ctx.save_for_backward(x, scale, bias, cos, sin)
         ctx.args = (num_heads, eps, fold_scale)
-        return _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale,
-                    plain)
+        return _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale)
 
     @staticmethod
     def backward(ctx, ct):
@@ -113,7 +110,7 @@ class _QkLnRope(torch.autograd.Function):
             grads = _recompute_grads(
                 ctx, lambda x, sc, bi, cos, sin: qk_ln_rope_plain(
                     x, sc, bi, cos, sin, *ctx.args), [ct])
-        return (*grads[:3], None, None, None, None, None, None)
+        return (*grads[:3], None, None, None, None, None)
 
 
 def qk_ln_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -123,5 +120,5 @@ def qk_ln_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     Differentiable in x, scale and bias (plain recompute backward)."""
     if _build.needs_grad(x, scale, bias):
         return _QkLnRope.apply(x, scale, bias, cos, sin, num_heads, eps,
-                               fold_scale, False)
+                               fold_scale)
     return _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale)

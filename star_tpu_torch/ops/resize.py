@@ -13,8 +13,8 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """x [..., H, W, C] -> [..., out_h, out_w, C]; bilinear with half-pixel
     centres (align_corners=False), antialiased on an axis that shrinks
     (the triangle widened by the ratio) — what jax.image.resize computes,
-    for the pipeline's x4 upsample and for a target smaller than the
-    input. Computed in float64: PyTorch's antialiased path rounds its
+    for the pipeline's x4 upsample, for a target smaller than the input
+    and for the degradation's 'area' mode. Computed in float64: PyTorch's antialiased path rounds its
     weights to about 1e-5 in float32 on an axis that grows."""
     lead = x.shape[:-3]
     h, w, c = x.shape[-3:]

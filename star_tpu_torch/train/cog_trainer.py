@@ -27,8 +27,8 @@ from torch import nn
 
 from ..diffusion.zero_snr import ZeroSNRDDPMDiscretization
 from .losses import star_sr_loss
-from .trainer import (Optimizer, TrainState, apply_update, global_norm,
-                      make_train_state, trainable_mask)
+from .trainer import (Optimizer, TrainConfig, TrainState, apply_update,
+                      global_norm, make_train_state, trainable_mask)
 
 COG_TRAINABLE = ('lora_a', 'lora_b', 'final_linear', 'final_adaln',
                  'final_ln', 'proj_sr', 'spa_local', 'temp_local')
@@ -53,20 +53,19 @@ class CogTrainConfig:
     freq_loss: bool = True
     freq_grad: bool = False
     ema_decay: float = 0.0        # 0 disables
-    # optax.adamw's defaults (the JAX step passes only the learning rate)
-    adam_beta1: float = 0.9
-    adam_beta2: float = 0.999
-    adam_eps: float = 1e-8
-    weight_decay: float = 1e-4
-    warmup_steps: int = 0
 
 
 def make_cog_train_state(cfg: CogTrainConfig, model: nn.Module
                          ) -> tuple[TrainState, Optimizer]:
     """fp32 masters of the DiT's trainable set, the optimizer over them and
     the EMA of them when cfg.ema_decay > 0; the module made ready to train
-    (frozen parameters without grad)."""
-    return make_train_state(cfg, model, cog_is_trainable)
+    (frozen parameters without grad). The optimizer is optax.adamw's
+    default, which the JAX step builds from the learning rate alone:
+    weight decay 1e-4, no warmup."""
+    opt_cfg = TrainConfig(learning_rate=cfg.learning_rate,
+                          max_grad_norm=cfg.max_grad_norm,
+                          weight_decay=1e-4, ema_decay=cfg.ema_decay)
+    return make_train_state(opt_cfg, model, cog_is_trainable)
 
 
 def make_cog_train_step(cfg: CogTrainConfig, model: nn.Module, tx: Optimizer,

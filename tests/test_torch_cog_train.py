@@ -277,23 +277,27 @@ def test_train_step_moves_trainable_keeps_frozen_and_tracks_ema(models,
 def test_optimizer_is_optax_adamw_default():
     """The JAX Cog step's optimizer is clip_by_global_norm +
     optax.adamw(lr) with optax's defaults: weight decay 1e-4, eps 1e-8,
-    betas (0.9, 0.999), no warmup; three updates of the port's equal
-    optax's."""
-    from star_tpu_torch.train.trainer import Optimizer
+    betas (0.9, 0.999), no warmup; three updates of the optimizer that
+    make_cog_train_state builds equal optax's."""
     cfg = CogTrainConfig(learning_rate=1e-2, max_grad_norm=0.5)
     r = rng(3)
     p0 = randn(r, 6, 5) * 3
     grads = [randn(r, 6, 5) for _ in range(3)]
     tx = optax.chain(optax.clip_by_global_norm(0.5), optax.adamw(1e-2))
     jp, js = jnp.asarray(p0), tx.init(jnp.asarray(p0))
-    masters = {'w': t(p0).clone()}
-    opt = Optimizer(cfg, masters)
+    model = torch.nn.Module()
+    model.proj_sr = torch.nn.Linear(5, 6, bias=False)
+    model.frozen = torch.nn.Linear(5, 6, bias=False)
+    with torch.no_grad():
+        model.proj_sr.weight.copy_(t(p0))
+    state, opt = make_cog_train_state(cfg, model)
+    assert list(state.params) == ['proj_sr.weight']
     for i, gr in enumerate(grads):
         upd, js = tx.update(jnp.asarray(gr), js, jp)
         jp = optax.apply_updates(jp, upd)
-        opt.update({'w': t(gr)}, i)
-    np.testing.assert_allclose(masters['w'].numpy(), np.asarray(jp),
-                               rtol=1e-5, atol=1e-6)
+        opt.update({'proj_sr.weight': t(gr)}, i)
+    np.testing.assert_allclose(state.params['proj_sr.weight'].numpy(),
+                               np.asarray(jp), rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------- launches per step, on the CPU

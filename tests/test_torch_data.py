@@ -113,6 +113,46 @@ def test_image_dataset_matches(tmp_path):
     assert (ds[1]['gt'][0, 0] == -1.0).all()
 
 
+def _cycle(ds):
+    while True:
+        yield from ds
+
+
+@pytest.mark.parametrize('n', [1, 3, 5])
+@pytest.mark.parametrize('kind', ['video', 'cog', 'image'])
+def test_skip_equals_reading_past(triplet_root, tmp_path, monkeypatch, kind,
+                                  n):
+    """skip(n) leaves a dataset where reading n samples (across epochs)
+    leaves it, the shuffles and caption draws included, without loading a
+    file: the next four samples are equal bit for bit."""
+    import cv2
+    if kind == 'image':
+        for sub in ('gt', 'sr_bicubic'):
+            os.makedirs(tmp_path / sub)
+            for i, name in enumerate('ab'):
+                cv2.imwrite(str(tmp_path / sub / f'{name}.png'),
+                            np.full((8, 12, 3), 40 * i, np.uint8))
+        make = lambda: dataset.PairedCaptionImageDataset(
+            str(tmp_path), crop_size=(8, 12))
+    else:
+        cls = {'video': dataset.PairedCaptionVideoDataset,
+               'cog': dataset.CogPairedCaptionDataset}[kind]
+        make = lambda: cls(triplet_root, num_frames=3, seed=5)
+    read, skipped = make(), make()
+    it = _cycle(read)
+    for _ in range(n):
+        next(it)
+
+    def no_load(*a, **k):
+        raise AssertionError('skip read a file')
+    with monkeypatch.context() as m:
+        m.setattr(dataset, 'load_video', no_load)
+        m.setattr(cv2, 'imread', no_load)
+        skipped.skip(n)
+    it2 = _cycle(skipped)
+    same_samples([next(it) for _ in range(4)], [next(it2) for _ in range(4)])
+
+
 def test_shard_for_process_matches():
     from star_tpu.data.dataset import shard_for_process as j
     items = list(range(10))

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from star_tpu_torch.data import degradation as deg
+from star_tpu_torch.ops.resize import resize_bilinear
 from test_torch_harness import rel_err
 
 
@@ -232,7 +233,8 @@ def test_degrade_video_matches(recipe, seed, codec):
     want_lq, want_usm = jd().degrade_video(gt, scale=4, seed=seed,
                                            use_codec=codec, recipe=recipe)
     lq, usm = deg.degrade_video(gt, scale=4, seed=seed, use_codec=codec,
-                                recipe=recipe, draw=_draw(seed))
+                                recipe=recipe, device='cpu',
+                                draw=_draw(seed))
     assert tuple(lq.shape) == want_lq.shape == (3, 12, 16, 3)
     assert rel_err(usm, want_usm) <= 1e-5
     frac, worst = off_fraction(lq, want_lq)
@@ -261,7 +263,7 @@ def test_image_pair_helpers_match():
     img = frames(8, 1, 96, 128)[0]
     want = jd().realesrgan_image_pair(img, scale=4, gt_size=64, seed=5)
     got = deg.realesrgan_image_pair(img, scale=4, gt_size=64, seed=5,
-                                    draw=_draw(5))
+                                    device='cpu', draw=_draw(5))
     assert np.array_equal(got[0].numpy(), want[0])
     assert rel_err(got[1], want[1]) <= 1e-5
     frac, worst = off_fraction(got[2], want[2])
@@ -314,17 +316,17 @@ def test_degrade_video_end_to_end(recipe):
     determinism, and the two recipes apart."""
     gt = frames(4, 2, 64, 64, smooth=False)
     lq, gt_usm = deg.degrade_video(gt, scale=4, seed=3, use_codec=False,
-                                   recipe=recipe)
+                                   recipe=recipe, device='cpu')
     assert lq.shape == (2, 16, 16, 3) and gt_usm.shape == gt.shape
     assert 0.0 <= float(lq.min()) and float(lq.max()) <= 1.0
-    clean = deg.resize_jax(torch.from_numpy(gt), 16, 16, 'linear', True)
+    clean = resize_bilinear(torch.from_numpy(gt), 16, 16)
     assert float((lq - clean).abs().mean()) > 0.005
     again, _ = deg.degrade_video(gt, scale=4, seed=3, use_codec=False,
-                                 recipe=recipe)
+                                 recipe=recipe, device='cpu')
     assert torch.equal(lq, again)
     other, _ = deg.degrade_video(gt, scale=4, seed=3, use_codec=False,
                                  recipe='mid' if recipe == 'default'
-                                 else 'default')
+                                 else 'default', device='cpu')
     assert not torch.allclose(lq, other)
 
 
@@ -355,11 +357,12 @@ def test_paired_random_crop_alignment_and_realesrgan_contract():
         deg.paired_random_crop(np.random.RandomState(1), gt, lq[:-1], 32, 4)
     img = frames(0, 1, 96, 128, smooth=False)[0]
     gt_c, usm_c, lq_c = deg.realesrgan_image_pair(img, scale=4, gt_size=64,
-                                                  seed=5)
+                                                  seed=5, device='cpu')
     assert gt_c.shape == usm_c.shape == (64, 64, 3)
     assert lq_c.shape == (16, 16, 3)
     assert 0 <= float(lq_c.min()) and float(lq_c.max()) <= 1
     assert not torch.allclose(gt_c, usm_c)
-    again = deg.realesrgan_image_pair(img, scale=4, gt_size=64, seed=5)
+    again = deg.realesrgan_image_pair(img, scale=4, gt_size=64, seed=5,
+                                      device='cpu')
     assert all(torch.equal(a, b) for a, b in zip(again, (gt_c, usm_c,
                                                          lq_c)))

@@ -148,9 +148,19 @@ def test_training_entry_points_need_a_card_unless_told_cpu(monkeypatch,
                                                            tmp_path):
     """make_paired_data, train_sr and train_cog refuse without a card
     before they read a file or build a model; with --device cpu they go on
-    (here to the missing CSV or data)."""
+    (here to the missing CSV or data). So do the degradation's entry points
+    on host frames, unless given device='cpu'."""
     from star_tpu_torch.cli import make_paired_data, train_cog, train_sr
+    from star_tpu_torch.data.degradation import (degrade_video,
+                                                 realesrgan_image_pair)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    frames = np.zeros((1, 16, 16, 3), np.float32)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        degrade_video(frames, use_codec=False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        realesrgan_image_pair(frames[0], gt_size=8)
+    assert degrade_video(frames, use_codec=False,
+                         device='cpu')[0].device.type == 'cpu'
     csv = str(tmp_path / 'rows.csv')
     data = ['--data_root', str(tmp_path / 'none'), '--output_dir',
             str(tmp_path / 'out'), '--allow_random_weights']

@@ -55,7 +55,11 @@
    prompt with the CLI's defaults (49 frames of 480x720: 13 latent frames,
    17776 tokens; 50 DiT calls), the launch counts reset just before and
    read just after, and times one stock-DiT CFG step;
-5b. (after phase 5, on its models) runs cli/train_sr.py's loop: an
+5c. (after phase 5, on its models) trains with dropout active
+   (deterministic=False, rate 0.1, the masks drawn from a seeded
+   generator): one warm-up and three timed steps, the UNet's temporal conv
+   chains unfused (no K5 in the UNet), each step's launches exact;
+5b. (after phase 5c, on its models) runs cli/train_sr.py's loop: an
    in-memory iterator of two synthetic 8-frame 720x1280 triplets, 3 steps
    with checkpoints at steps 1 and 2 (torch files under build/), the
    step-2 file held bit for bit to the run's state at step 2, then a run
@@ -69,7 +73,13 @@
 8. runs cli/make_paired_data.py's per-clip function on a synthetic
    32-frame 720x1280 clip on the card, recipes default and mid, the codec
    stage on;
-9. prints one JSON line of kernel results, the card line, and as the last
+9. (after phase 6b, on its models) the distributed path at world size 1
+   over NCCL, in this process (init_distributed, a loopback rendezvous):
+   Ulysses attention at the DiT's shape against a direct K1 call, bit for
+   bit; cp_decode of 7 latent frames against the serial decoder; one step
+   of train_cog's loop through the data-parallel and ZeRO path against
+   the same step without the group; the group destroyed after;
+10. prints one JSON line of kernel results, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line is printed. Without a CUDA
@@ -233,6 +243,13 @@ def bound_sum_ms(kind: str, *tables: dict) -> float:
 DECODE_K5 = (vae_decode_per_call(2, 3)[0], vae_decode_per_call(1, 2)[0])
 DECODE_K6 = (vae_decode_per_call(2, 3)[1], vae_decode_per_call(1, 2)[1])
 TRAIN_TIMED_STEPS = 6
+# phase 5c: with dropout active every temporal conv block of the UNet and
+# the ControlNet runs the unfused chain (32 a call, 64 a train step with
+# the remat recompute; tests/test_torch_dropout.py derives them on the
+# CPU), so the train step's K5 launches are the VAE decode's alone
+DROPOUT_TIMED_STEPS = 3
+UNFUSED_CHAINS_PER_TRAIN_STEP = 2 * 32
+DROPOUT_K5_PER_TRAIN_STEP = 2 * K5_PER_DECODE
 # the keys of a training CLI's metrics.jsonl row: the train step's metrics
 # and step, lr, sec_per_step (tests/test_torch_train_cli.py holds them to
 # the JAX CLIs' rows)
@@ -2243,6 +2260,100 @@ def run_train(dev, models, profile: str | None = None) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 5c: the train step with dropout active
+
+
+def run_train_dropout(dev, models) -> dict:
+    """Phase 5's train step with the UNet's dropout active
+    (deterministic=False, rate 0.1): the same full-width models, batch
+    shape, TrainConfig() and injected t and noise, the masks drawn from a
+    seeded generator in every step. One warm-up and DROPOUT_TIMED_STEPS
+    timed steps; finite loss, grad_norm > 0, every master moved, frozen
+    parameters bit-identical, the launches of each step exact (K5 only in
+    the VAE decode of pred-x0)."""
+    import statistics
+    import torch
+    from star_tpu_torch import ops
+    from star_tpu_torch.diffusion import DiffusionTables, default_star_schedule
+    from star_tpu_torch.models.clip.tokenizer import default_tokenizer
+    from star_tpu_torch.train import (TrainConfig, make_train_state,
+                                      make_train_step)
+
+    unet, vae = models.unet, models.vae
+    g = torch.Generator(device=dev).manual_seed(17)
+    with torch.no_grad():
+        gt, lq = (torch.rand(1, 8, 720, 1280, 3, generator=g, device=dev)
+                  * 2 - 1 for _ in range(2))
+        gt_lat = vae.encode(gt, generator=g)
+        lq_lat = vae.encode(lq, eps=torch.zeros(gt_lat.shape, device=dev))
+        tokens = torch.as_tensor(default_tokenizer(allow_fallback=True)(
+            ['a good video']), device=dev)
+        batch = {'gt_latent': gt_lat, 'lq_latent': lq_lat,
+                 'y': models.text(tokens), 'gt_pixels': gt}
+    unet.unet.remat = unet.controlnet.remat = True
+    cfg = TrainConfig()
+    state, tx = make_train_state(cfg, unet)
+    step = make_train_step(cfg, unet, DiffusionTables.from_schedule(
+        default_star_schedule(), dev), tx, vae_decode=vae.decode,
+        deterministic=False)
+    t = torch.randint(0, cfg.num_timesteps, (1,), generator=g, device=dev)
+    noise = torch.randn(gt_lat.shape, generator=g, device=dev)
+    named = dict(unet.named_parameters())
+    frozen = {n: fingerprint(p) for n, p in named.items()
+              if n not in state.params}
+    masters0 = {n: fingerprint(m) for n, m in state.params.items()}
+    gc.collect()
+    gc.freeze()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    try:
+        for i in range(1 + DROPOUT_TIMED_STEPS):
+            ops.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, batch, g, t=t, noise=noise)
+            end.record()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            ms = start.elapsed_time(end)
+            m = {k: float(v) for k, v in m.items()}
+            log(f'dropout train step {i}{" (warm-up)" if i == 0 else ""}: '
+                f'{ms:.1f} ms; ' + ' '.join(f'{k} {v:.5f}'
+                                            for k, v in m.items())
+                + f'; launches {counts}')
+            assert all(math.isfinite(v) for v in m.values()), m
+            assert m['grad_norm'] > 0, m
+            assert_launches(f'dropout train step {i}', counts, {
+                **LN_PER_TRAIN_STEP, **ATTN_PER_TRAIN_STEP,
+                'fused_gn_silu_tconv3': DROPOUT_K5_PER_TRAIN_STEP,
+                'conv3x3': 2 * K6_PER_DECODE,
+                'upsample_conv2x': K7_PER_TRAIN_STEP})
+            if i:
+                times.append(ms)
+    finally:
+        gc.unfreeze()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    unmoved = [n for n, m in state.params.items()
+               if fingerprint(m) == masters0[n]]
+    changed = [n for n, f in frozen.items() if fingerprint(named[n]) != f]
+    assert not unmoved, f'masters that did not move: {unmoved[:5]}'
+    assert not changed, f'frozen parameters changed: {changed[:5]}'
+    step_ms = statistics.median(times)
+    log(f'dropout train step [1, 8, 90x160, remat, frequency loss, '
+        f'dropout 0.1, {UNFUSED_CHAINS_PER_TRAIN_STEP} unfused temporal '
+        f'conv chains]: median {step_ms:.1f} ms of '
+        f'{[round(x, 1) for x in times]}; peak memory {peak_gb:.1f} GB; '
+        f'{len(masters0)} masters all moved, frozen bit-identical')
+    res = dict(step_ms=step_ms, steps_ms=times, peak_gb=peak_gb,
+               launches=counts, losses=m)
+    del state, step, tx, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 5b: train_sr's loop at full width
 
 
@@ -2773,8 +2884,7 @@ def run_train_cog_cli(dev, models, profile: str | None = None) -> dict:
         f'{freq["peak_gb"]:.2f} GB; ' + ' '.join(
             f'{k} {v:.5g}' for k, v in frows[0].items()))
     res['freq'] = freq
-    models.dit = None
-    del dit, named
+    del named      # the LoRA DiT stays in models.dit for phase 9
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2838,12 +2948,198 @@ def run_make_pairs(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 9: the distributed path over NCCL
+
+
+def run_distributed(dev, models) -> dict:
+    """The port's torch.distributed path over NCCL, in this process: a
+    world of one rank (init_distributed with a loopback MASTER_ADDR and a
+    free port), or under `torchrun --nproc_per_node W` (`--phase
+    distributed`) W ranks, one card each. Every axis of a mesh is a group
+    (of one rank at W = 1), so every collective runs. (a) Ulysses
+    attention at the DiT's [2, 9680, 48, 64], kv_valid 9676, over W
+    context ranks against a direct K1 call on the whole sequence, bit for
+    bit, with one K1 launch a rank; (b) cp_decode of 7 latent frames over
+    W context ranks against the serial decoder (`models.vae`), within
+    COG_VAE_TOL; (c) one step of train_cog's loop on `models.dit` (LoRA)
+    through the data-parallel and ZeRO path over W data ranks
+    (make_cog_trainer with the mesh) against the same step in one process
+    at the global batch of W: the same row (exactly at W = 1; within
+    1e-2 at W > 1, whose bf16 batch sums run in another order), the
+    masters within what one step's gradient noise moves them (K3's dQ
+    order varies from run to run). Each part timed; the group destroyed
+    after."""
+    import os
+    import socket
+    import torch
+    import torch.distributed as dist
+    from star_tpu_torch import ops
+    from star_tpu_torch.cli import train_cog, train_sr
+    from star_tpu_torch.models.t5.tokenizer import default_t5_tokenizer
+    from star_tpu_torch.ops.attention import dot_product_attention_packed
+    from star_tpu_torch.parallel import init_distributed, make_mesh
+    from star_tpu_torch.parallel.ulysses import ulysses_attention_global
+    from star_tpu_torch.train.cog_trainer import (CogTrainConfig,
+                                                  cog_is_trainable)
+    from star_tpu_torch.vae.causal_vae import cp_decode
+
+    own = 'WORLD_SIZE' not in os.environ     # not started by torchrun
+    if own:
+        with socket.socket() as sock:
+            sock.bind(('127.0.0.1', 0))
+            port = sock.getsockname()[1]
+        os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                          RANK='0', WORLD_SIZE='1', LOCAL_RANK='0')
+    res = {}
+    t0 = time.perf_counter()
+    rank, world = init_distributed(device=dev)
+    res.update(world=world, init_s=time.perf_counter() - t0)
+    say = lambda msg: log(f'phase 9 [rank {rank} of {world}] {msg}')
+    try:
+        # (a) Ulysses at the DiT's attention shape
+        ctx = make_mesh(context=world)
+        assert dist.get_backend(ctx.group('context')) == 'nccl'
+        g = torch.Generator(device=dev).manual_seed(31)
+        q, k, v = (torch.randn(2, 9680, 48, 64, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        got = ulysses_attention_global(q, k, v, ctx, kv_valid=9676,
+                                       prescaled=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        res['ulysses_s'] = time.perf_counter() - t0
+        pack = lambda x: x.reshape(2, 9680, 48 * 64)
+        want = dot_product_attention_packed(pack(q), pack(k), pack(v), 48,
+                                            kv_valid=9676, prescaled=True)
+        assert counts['flash_packed'] == 1 and sum(counts.values()) == 1, \
+            counts
+        assert torch.equal(pack(got), want), \
+            float((pack(got) - want).abs().max())
+        say(f'(a) ulysses_attention [2,9680,48,64] kv_valid 9676 over '
+            f'{world} context rank(s): {res["ulysses_s"]:.3f} s, bit for '
+            f'bit with the direct K1 call, launches {counts}')
+        del q, k, v, got, want
+
+        # (b) the context-parallel decode of 7 latent frames
+        z = torch.randn(1, 7, 60, 90, 16, generator=g, device=dev) \
+            .to(torch.bfloat16)
+        with torch.no_grad():
+            want = models.vae.decoder(z)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = cp_decode(models.vae, z, ctx)
+            torch.cuda.synchronize()
+        res['cp_decode_s'] = time.perf_counter() - t0
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        res['cp_decode_rel_err'] = err
+        say(f'(b) cp_decode [1,7,60,90,16] -> {tuple(got.shape)} over '
+            f'{world} context rank(s): {res["cp_decode_s"]:.2f} s, error '
+            f'{err:.3e} of the serial decoder\'s largest value (tolerance '
+            f'{COG_VAE_TOL})')
+        assert got.shape == want.shape and err <= COG_VAE_TOL, err
+        del z, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) one train_cog step through the DP/ZeRO path
+        dit = models.dit
+        tokenizer = default_t5_tokenizer(allow_fallback=True)
+        samples = synthetic_triplets(world, 25, 480, 720, seed=8)
+        start = {n: p.detach().clone() for n, p in dit.named_parameters()
+                 if cog_is_trainable(n)}
+        cfg = CogTrainConfig(freq_loss=False)
+
+        def one_step(m):
+            with torch.no_grad():
+                for n, p in dit.named_parameters():
+                    if n in start:
+                        p.copy_(start[n])
+            gen = torch.Generator(device=dev).manual_seed(21)
+            state, step_fn, make_batch = train_cog.make_cog_trainer(
+                models, cfg, dev, gen, tokenizer, mesh=m)
+            rows = []
+            t1 = time.perf_counter()
+            state = train_sr.train_loop(
+                step_fn, state, make_batch, lambda: iter(samples),
+                start_step=0, max_train_steps=1, global_batch=world,
+                checkpoints=None, write_row=rows.append,
+                learning_rate=cfg.learning_rate, generator=gen)
+            torch.cuda.synchronize()
+            return state.params, rows[0], time.perf_counter() - t1
+
+        ref, ref_row, ref_s = one_step(None)
+        got, row, res['train_cog_step_s'] = one_step(make_mesh(data=world))
+        moved = max(float((got[n] - start[n].float()).abs().max())
+                    for n in got)
+        diff = max(float((got[n] - ref[n]).abs().max()) for n in got)
+        res.update(train_cog_master_diff=diff, train_cog_master_moved=moved,
+                   train_cog_row=row, train_cog_ref_row=ref_row,
+                   train_cog_ref_step_s=ref_s)
+        say(f'(c) train_cog step over {world} data rank(s) (ZeRO moments) '
+            f'{res["train_cog_step_s"]:.2f} s, one process at the global '
+            f'batch {ref_s:.2f} s; loss {row["total_loss"]:.6f} against '
+            f'{ref_row["total_loss"]:.6f}, grad_norm {row["grad_norm"]:.6f} '
+            f'against {ref_row["grad_norm"]:.6f}; masters apart by at most '
+            f'{diff:.3e} (moved by up to {moved:.3e})')
+        if world == 1:
+            assert row['total_loss'] == ref_row['total_loss'], (row, ref_row)
+        else:
+            assert abs(row['total_loss'] - ref_row['total_loss']) \
+                <= 1e-2 * abs(ref_row['total_loss']), (row, ref_row)
+        assert abs(row['grad_norm'] - ref_row['grad_norm']) \
+            <= 1e-2 * ref_row['grad_norm'], (row, ref_row)
+        # one AdamW step moves an element by at most about lr; run-to-run
+        # noise in the gradient can at most flip a step's direction
+        assert diff <= 2.5 * cfg.learning_rate, diff
+        del ref, got, start
+    finally:
+        dist.destroy_process_group()
+        if own:
+            for key in ('MASTER_ADDR', 'MASTER_PORT', 'RANK', 'WORLD_SIZE',
+                        'LOCAL_RANK'):
+                os.environ.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def distributed_models(dev):
+    """Phase 9's models made on the card alone (`--phase distributed`):
+    phase 6b's LoRA-512 DiT (zero-init layers made non-zero), T5-XXL and
+    the causal VAE, seeded random bf16."""
+    import torch
+    from star_tpu_torch.models.dit.dit import CogVideoDiT
+    from star_tpu_torch.models.t5.encoder import T5Encoder
+    from star_tpu_torch.pipeline.build import CogModels, _init_random
+    from star_tpu_torch.vae.causal_vae import CogVideoVAE
+    dit, vae, t5 = _init_random([lambda: CogVideoDiT(lora_rank=512),
+                                 CogVideoVAE, T5Encoder], 2,
+                                torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        for mod in dit.modules():
+            if getattr(mod, 'zero_init', False):
+                for p in mod.parameters(recurse=False):
+                    fan_in = p[0].numel() if p.ndim > 1 else 1
+                    p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                            * (0.1 / math.sqrt(fan_in)))
+    return CogModels(dit, vae, t5)
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--phase', choices=('all', 'kernels'), default='all',
-                    help='kernels: build and check the kernels only')
+    ap.add_argument('--phase', choices=('all', 'kernels', 'distributed'),
+                    default='all',
+                    help='kernels: build and check the kernels only; '
+                    'distributed: phase 9 alone, on its own models, at the '
+                    'world torchrun gives (build the kernels first, in one '
+                    'process)')
     ap.add_argument('--profile', metavar='FILE',
                     help='also trace one CFG step with torch.profiler and '
                     'write its device time by kernel to FILE, one train '
@@ -2861,6 +3157,14 @@ def main() -> int:
 
     card = card_line()
     log(f'card: {card}')
+    if args.phase == 'distributed':
+        import os
+        dev = torch.device('cuda', int(os.environ.get('LOCAL_RANK', 0)))
+        torch.cuda.set_device(dev)
+        _build.lib()
+        res = run_distributed(dev, distributed_models(dev))
+        log('distributed ' + json.dumps(res))
+        return 0
     dev = torch.device('cuda', 0)
     t0 = time.perf_counter()
     _build.build(verbose=True)
@@ -2880,6 +3184,7 @@ def main() -> int:
     served = run_serve(dev, run['pipe'], run['launches'])
     step = time_cfg_step(dev, run['models'], args.profile)
     train = run_train(dev, run['models'], args.profile)
+    dropout = run_train_dropout(dev, run['models'])
     train_cli = run_train_sr_cli(dev, run['models'])
     # the I2VGen models go before the CogVideoX ones come, so that the Cog
     # clip's peak memory is its own
@@ -2895,6 +3200,7 @@ def main() -> int:
     t2v = run_t2v(dev, cog_models)
     t2v_step = time_dit_step(dev, t2v.pop('dit'), (2, 13, 60, 90, 16))
     cog_train = run_train_cog_cli(dev, cog_models, args.profile)
+    distributed = run_distributed(dev, cog_models)
     del cog_models
     pairs = run_make_pairs(dev)
     for name, rec in results.items():
@@ -2906,6 +3212,7 @@ def main() -> int:
                            else run)['launches'][name]
         rec['launches_per_cfg_step'] = step['launches'][name]
         rec['launches_per_train_step'] = train['launches'][name]
+        rec['launches_per_dropout_train_step'] = dropout['launches'][name]
         rec['launches_cog_clip'] = cog['launches'][name]
         rec['launches_per_dit_step'] = dit_step['launches'].get(name, 0)
         rec['launches_t2v_clip'] = t2v['launches'][name]
@@ -2918,7 +3225,12 @@ def main() -> int:
         profile=step.get('profile'), train_step_ms=train['step_ms'],
         train_steps_ms=train['steps_ms'], train_steps=train['steps'],
         train_peak_gb=train['peak_gb'], train_losses=train['losses'],
-        train_profile=train.get('profile'), cog_clip_s=cog['clip_s'],
+        train_profile=train.get('profile'),
+        dropout_train_step_ms=dropout['step_ms'],
+        dropout_train_steps_ms=dropout['steps_ms'],
+        dropout_train_peak_gb=dropout['peak_gb'],
+        dropout_train_losses=dropout['losses'], distributed=distributed,
+        cog_clip_s=cog['clip_s'],
         cog_dit_calls=cog['dit_calls'], cog_stages=cog['stages'],
         cog_init_s=cog['init_s'], cog_peak_gb=cog['peak_gb'],
         conversion=run['conversion'], cog_convert_s=cog['convert_s'],

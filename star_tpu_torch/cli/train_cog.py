@@ -21,19 +21,21 @@ a CogVideoDiT(lora_rank=--lora_rank) that keeps its LoRA keys (a file
 converted with --merge-lora has none and is refused), t5.pt and
 causal_vae.pt; without it, --allow_random_weights trains from random
 weights with the hash tokenizer (a smoke run). It runs on the CUDA card in
-bf16; --device cpu runs the plain versions on the host in fp32. One
-process, one card (see train_sr: --data_parallel/--tensor_parallel above 1
-and --coordinator wait for ROADMAP.md, section 1, item 5).
+bf16; --device cpu runs the plain versions on the host in fp32.
+--data_parallel, --tensor_parallel (the DiT split over 'tensor') and
+--coordinator work as in train_sr: D*T processes under torchrun, rank 0
+writing the files.
 """
 
 from __future__ import annotations
 
 import os
 from argparse import ArgumentParser
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert.convert import load_params
 from ..convert.load import module_from_state_dict
@@ -42,6 +44,8 @@ from ..data.prefetch import PrefetchIterator
 from ..models.dit.dit import CogVideoDiT
 from ..models.t5.encoder import T5Encoder
 from ..models.t5.tokenizer import default_t5_tokenizer
+from ..parallel import AXIS_DATA, shard_opt_state, shard_params
+from ..parallel.mesh import Mesh
 from ..pipeline.build import CogModels, _init_random
 from ..train.checkpoint import CheckpointManager
 from ..train.cog_trainer import (CogTrainConfig, make_cog_train_state,
@@ -50,8 +54,9 @@ from ..utils.device import resolve_device
 from ..utils.logger import get_logger
 from ..utils.seed import setup_seed
 from ..vae.causal_vae import CogVideoVAE
-from .train_sr import (compute_dtype, jsonl_writer, refuse_parallel,
-                       stack_batch, train_loop)
+from .train_sr import (compute_dtype, posterior_eps, rank_rows, row_writer,
+                       stack_batch, start_processes, stop_processes,
+                       train_loop)
 
 
 def parse_args(argv=None):
@@ -78,10 +83,14 @@ def parse_args(argv=None):
                         'per step')
     p.add_argument('--clean_captions', action='store_true')
     p.add_argument('--allow_random_weights', action='store_true')
-    p.add_argument('--data_parallel', type=int, default=1)
-    p.add_argument('--tensor_parallel', type=int, default=1)
+    p.add_argument('--data_parallel', type=int, default=1,
+                   help='data-parallel ranks (ZeRO-1 moments)')
+    p.add_argument('--tensor_parallel', type=int, default=1,
+                   help='tensor-parallel ranks (Megatron DiT)')
     p.add_argument('--ema_decay', type=float, default=0.0)
-    p.add_argument('--coordinator', default=None)
+    p.add_argument('--coordinator', default=None,
+                   help='host:port of the rendezvous (tcp://) when the '
+                        'processes are not started by torchrun')
     p.add_argument('--device', type=str, default='cuda',
                    help='cuda (the default) or cpu')
     return p.parse_args(argv)
@@ -124,27 +133,33 @@ def init_random_train_models(lora_rank: int, seed: int, dtype: torch.dtype,
 
 def make_cog_trainer(models: CogModels, cfg: CogTrainConfig,
                      device: torch.device, generator: torch.Generator,
-                     tokenizer):
+                     tokenizer, mesh: Optional[Mesh] = None):
     """(state, step_fn, make_batch) over the Cog models: the DiT made the
-    compute copy (its layers rematerialised, the DiT's default), its
-    trainable set as fp32 masters; make_batch encodes a list of samples
-    as the JAX CLI does."""
+    compute copy (its layers rematerialised, the DiT's default; split
+    over the mesh's 'tensor' axis), its trainable set as fp32 masters
+    (their moments split over 'data' when it has more than one rank);
+    make_batch encodes this rank's rows of a list of samples (the global
+    batch) as the JAX CLI does."""
     dit, vae, t5 = models.dit, models.vae, models.text
     dtype = next(dit.parameters()).dtype
+    if mesh is not None:
+        shard_params(dit, mesh)
     state, tx = make_cog_train_state(cfg, dit)
+    if mesh is not None and mesh.group(AXIS_DATA) is not None:
+        shard_opt_state(tx, mesh)
     decode = None
     if cfg.freq_loss:
         # one window with a cleared cache (the JAX CLI's training decode;
         # serving keeps the serial windows)
         decode = lambda z: vae.decode_window(z.to(dtype), {}, True)[0]
-    train_step = make_cog_train_step(cfg, dit, tx, decode)
+    train_step = make_cog_train_step(cfg, dit, tx, decode, mesh)
 
     @torch.no_grad()
     def make_batch(samples):
-        gt_np, lq_np, texts = stack_batch(samples)
+        gt_np, lq_np, texts = stack_batch(rank_rows(samples, mesh))
         gt = torch.from_numpy(gt_np).to(device, dtype)
         lq = torch.from_numpy(lq_np).to(device, dtype)
-        gt_lat = vae.encode(gt, generator=generator)
+        gt_lat = vae.encode(gt, eps=posterior_eps(generator, device, mesh))
         lq_lat = vae.encode(lq, eps=torch.zeros(gt_lat.shape, device=device))
         tokens = torch.as_tensor(np.asarray(tokenizer(texts)), device=device)
         batch = {'gt_latent': gt_lat, 'lq_latent': lq_lat, 'y': t5(tokens)}
@@ -159,8 +174,16 @@ def make_cog_trainer(models: CogModels, cfg: CogTrainConfig,
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_parallel(args)
     device = resolve_device(args.device)
+    started = not dist.is_initialized()
+    mesh, device = start_processes(args, device)
+    try:
+        return run(args, device, mesh)
+    finally:
+        stop_processes(started)
+
+
+def run(args, device: torch.device, mesh: Mesh):
     logger = get_logger()
     generator = setup_seed(args.seed, device)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -181,7 +204,7 @@ def main(argv=None):
                          max_grad_norm=args.max_grad_norm,
                          freq_loss=args.freq_loss, ema_decay=args.ema_decay)
     state, step_fn, make_batch = make_cog_trainer(models, cfg, device,
-                                                  generator, tokenizer)
+                                                  generator, tokenizer, mesh)
 
     ckpt = CheckpointManager(os.path.join(args.output_dir, 'ckpt'),
                              max_to_keep=3,
@@ -195,14 +218,13 @@ def main(argv=None):
     ds = CogPairedCaptionDataset(args.data_root, args.num_frames,
                                  seed=args.seed,
                                  clean_captions=args.clean_captions)
-    ds.skip(start_step * args.batch_size)
-    make_it = lambda: PrefetchIterator(ds, depth=2 * args.batch_size)
+    global_batch = args.batch_size * args.data_parallel
+    ds.skip(start_step * global_batch)
+    make_it = lambda: PrefetchIterator(ds, depth=2 * global_batch)
     return train_loop(
         step_fn, state, make_batch, make_it, start_step=start_step,
-        max_train_steps=args.max_train_steps, global_batch=args.batch_size,
-        checkpoints=ckpt,
-        write_row=jsonl_writer(os.path.join(args.output_dir,
-                                            'metrics.jsonl')),
+        max_train_steps=args.max_train_steps, global_batch=global_batch,
+        checkpoints=ckpt, write_row=row_writer(args.output_dir),
         learning_rate=args.learning_rate, generator=generator)
 
 

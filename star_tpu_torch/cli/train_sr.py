@@ -18,9 +18,21 @@ output_dir/samples every --sample_every steps.
 vae.pt, clip.pt); without it, --allow_random_weights trains from random
 weights (a smoke run). It runs on the CUDA card in bf16; --device cpu runs
 the plain PyTorch versions on the host in fp32 (--frozen_bf16 makes the
-compute copy bf16 there too). One process, one card: --data_parallel and
---tensor_parallel above 1 and --coordinator wait for the port of
-star_tpu/parallel/ (ROADMAP.md, section 1, item 5).
+compute copy bf16 there too).
+
+One process a card: --data_parallel D and --tensor_parallel T need D*T
+processes, started by torchrun (NCCL between cards; gloo with --device
+cpu) or given a rendezvous by --coordinator host:port:
+
+    torchrun --nproc_per_node 8 -m star_tpu_torch.cli.train_sr \
+        --data_root paired/ --output_dir runs/x --data_parallel 4 \
+        --tensor_parallel 2 ...
+
+Every rank reads the same seeded data and keeps its rows of the global
+batch (D * --batch_size samples); the AdamW moments are split over 'data'
+(ZeRO-1) and the UNet+ControlNet over 'tensor' (parallel/). Rank 0 writes
+the metrics rows, the checkpoints (the single-process file) and the
+previews.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert.load import load_star_models
 from ..data.dataset import PairedCaptionImageDataset, PairedCaptionVideoDataset
@@ -40,6 +53,9 @@ from ..data.io import save_video
 from ..data.prefetch import PrefetchIterator
 from ..diffusion import DiffusionTables, default_star_schedule
 from ..models.clip.tokenizer import default_tokenizer
+from ..parallel import (AXIS_DATA, init_distributed, make_hybrid_mesh,
+                        make_mesh, shard_opt_state, shard_params)
+from ..parallel.mesh import Mesh, draw_rows
 from ..pipeline.build import init_random_models
 from ..train import TrainConfig, cast_frozen, make_train_state, \
     make_train_step
@@ -74,11 +90,10 @@ def parse_args(argv=None):
     p.add_argument('--freq_loss', action='store_true', default=True)
     p.add_argument('--allow_random_weights', action='store_true')
     p.add_argument('--data_parallel', type=int, default=1,
-                   help='data-parallel processes; above 1 waits for the port '
-                        'of star_tpu/parallel/')
+                   help='data-parallel ranks (ZeRO-1 moments); the global '
+                        'batch is data_parallel * batch_size')
     p.add_argument('--tensor_parallel', type=int, default=1,
-                   help='tensor-parallel degree; above 1 waits for the port '
-                        'of star_tpu/parallel/')
+                   help='tensor-parallel ranks (Megatron UNet+ControlNet)')
     p.add_argument('--frozen_bf16', action='store_true',
                    help='hold the frozen (non-trainable) parameters in bf16 '
                         '(always so on the card); trainable masters stay '
@@ -89,22 +104,50 @@ def parse_args(argv=None):
                    help='decode a denoise preview of the current batch every '
                         'N steps into output_dir/samples; 0 = off')
     p.add_argument('--coordinator', default=None,
-                   help='multi-process rendezvous; waits for the port of '
-                        'star_tpu/parallel/')
+                   help='host:port of the rendezvous (tcp://) when the '
+                        'processes are not started by torchrun')
     p.add_argument('--device', type=str, default='cuda',
                    help='cuda (the default) or cpu')
     return p.parse_args(argv)
 
 
-def refuse_parallel(args) -> None:
-    """The DP/TP mesh and multi-process start of the JAX CLIs live in
-    star_tpu/parallel/, which the port has not taken over yet."""
-    if args.data_parallel > 1 or args.tensor_parallel > 1 \
-            or args.coordinator:
+def start_processes(args, device: torch.device):
+    """init_distributed, then the mesh of --data_parallel x
+    --tensor_parallel over the processes; raises before any model is
+    built unless the process count is their product. Returns (mesh,
+    device: this process's card)."""
+    _, count = init_distributed(args.coordinator, device=device)
+    need = args.data_parallel * args.tensor_parallel
+    if count != need:
         raise ValueError(
-            '--data_parallel/--tensor_parallel above 1 and --coordinator '
-            'need the port of star_tpu/parallel/ onto torch.distributed '
-            '(ROADMAP.md, section 1, item 5); the port trains on one card')
+            f'--data_parallel {args.data_parallel} x --tensor_parallel '
+            f'{args.tensor_parallel} needs {need} processes, one a card, and '
+            f'this run has {count}: start it with torchrun --nproc_per_node '
+            f'{need} (or {need} processes with --coordinator host:port)')
+    if device.type == 'cuda' and count > 1:
+        device = torch.device('cuda', torch.cuda.current_device())
+    make = make_hybrid_mesh if count > 1 else make_mesh
+    return make(data=args.data_parallel, tensor=args.tensor_parallel), device
+
+
+def stop_processes(started: bool) -> None:
+    """End the process group this run started."""
+    if started and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def rank_rows(samples: list, mesh: Optional[Mesh]) -> list:
+    """This data rank's samples of the global batch."""
+    if mesh is None:
+        return samples
+    n, r = mesh.size(AXIS_DATA), mesh.index(AXIS_DATA)
+    b = len(samples) // n
+    return samples[r * b:(r + 1) * b]
+
+
+def is_writer() -> bool:
+    """Rank 0 writes the run's files."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def collect_samples(it, reset, n):
@@ -181,13 +224,30 @@ def jsonl_writer(path: str) -> Callable[[dict], None]:
     return write
 
 
+def row_writer(output_dir: str) -> Callable[[dict], None]:
+    """The metrics rows' writer: output_dir/metrics.jsonl on rank 0."""
+    if not is_writer():
+        return lambda row: None
+    return jsonl_writer(os.path.join(output_dir, 'metrics.jsonl'))
+
+
+def posterior_eps(generator, device, mesh):
+    """The encode's eps as a function of the latent shape: the global
+    batch's draw, this rank's rows."""
+    return lambda shape: draw_rows(
+        lambda s: torch.randn(s, generator=generator, device=device),
+        shape, mesh)
+
+
 def make_trainer(models, cfg: TrainConfig, device: torch.device,
                  generator: torch.Generator, tokenizer,
-                 frozen_bf16: bool = False):
+                 frozen_bf16: bool = False, mesh: Optional[Mesh] = None):
     """(state, step_fn, make_batch, train_step) over the I2VGen models:
-    the UNet+ControlNet made the compute copy (remat on), its trainable
-    set as fp32 masters; make_batch encodes a list of samples as the JAX
-    CLI does."""
+    the UNet+ControlNet made the compute copy (remat on; split over the
+    mesh's 'tensor' axis), its trainable set as fp32 masters (their
+    moments split over 'data' when it has more than one rank); make_batch
+    encodes this rank's rows of a list of samples (the global batch) as
+    the JAX CLI does."""
     unet, vae, text = models.unet, models.vae, models.text
     dtype = compute_dtype(device, frozen_bf16)
     unet.to(dtype)
@@ -196,18 +256,22 @@ def make_trainer(models, cfg: TrainConfig, device: torch.device,
     if frozen_bf16:
         cast_frozen(unet)
     unet.unet.remat = unet.controlnet.remat = True
+    if mesh is not None:
+        shard_params(unet, mesh)
     state, tx = make_train_state(cfg, unet)
+    if mesh is not None and mesh.group(AXIS_DATA) is not None:
+        shard_opt_state(tx, mesh)
     train_step = make_train_step(
         cfg, unet, DiffusionTables.from_schedule(default_star_schedule(),
                                                  device), tx,
-        vae_decode=vae.decode if cfg.freq_loss else None)
+        vae_decode=vae.decode if cfg.freq_loss else None, mesh=mesh)
 
     @torch.no_grad()
     def make_batch(samples):
-        gt_np, lq_np, texts = stack_batch(samples)
+        gt_np, lq_np, texts = stack_batch(rank_rows(samples, mesh))
         gt = torch.from_numpy(gt_np).to(device, dtype)
         lq = torch.from_numpy(lq_np).to(device, dtype)
-        gt_lat = vae.encode(gt, generator=generator)
+        gt_lat = vae.encode(gt, eps=posterior_eps(generator, device, mesh))
         lq_lat = vae.encode(lq, eps=torch.zeros(gt_lat.shape, device=device))
         tokens = torch.as_tensor(np.asarray(tokenizer(texts)), device=device)
         batch = {'gt_latent': gt_lat, 'lq_latent': lq_lat, 'y': text(tokens)}
@@ -231,19 +295,30 @@ def preview_saver(output_dir: str):
 def previews(train_step, every: int, generator: torch.Generator,
              save: Callable[[np.ndarray, int], object]):
     """after_step for train_loop: every `every` steps, a one-shot denoise
-    of the batch at t 499, decoded, as uint8 frames of its first clip."""
+    of the batch at t 499, decoded, as uint8 frames of its first clip
+    (every rank denoises its rows, drawing the global batch's noise, and
+    rank 0 saves)."""
     def after_step(step, state, batch):
         if every and step % every == 0:
             pix = train_step.preview_x0(batch, generator)
             frames = (torch.clamp(pix[0].float() * 0.5 + 0.5, 0, 1) * 255)
-            save(frames.to(torch.uint8).cpu().numpy(), step)
+            if is_writer():
+                save(frames.to(torch.uint8).cpu().numpy(), step)
     return after_step
 
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_parallel(args)
     device = resolve_device(args.device)
+    started = not dist.is_initialized()
+    mesh, device = start_processes(args, device)
+    try:
+        return run(args, device, mesh)
+    finally:
+        stop_processes(started)
+
+
+def run(args, device: torch.device, mesh: Mesh):
     logger = get_logger()
     generator = setup_seed(args.seed, device)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -263,7 +338,7 @@ def main(argv=None):
                       freq_loss=args.freq_loss, ema_decay=args.ema_decay)
     tokenizer = default_tokenizer(allow_fallback=args.allow_random_weights)
     state, step_fn, make_batch, train_step = make_trainer(
-        models, cfg, device, generator, tokenizer, args.frozen_bf16)
+        models, cfg, device, generator, tokenizer, args.frozen_bf16, mesh)
 
     ckpt = CheckpointManager(os.path.join(args.output_dir, 'ckpt'),
                              max_to_keep=3,
@@ -279,20 +354,19 @@ def main(argv=None):
     else:
         ds = PairedCaptionVideoDataset(args.data_root, args.num_frames,
                                        seed=args.seed)
-    ds.skip(start_step * args.batch_size)
+    global_batch = args.batch_size * args.data_parallel
+    ds.skip(start_step * global_batch)
     # background-thread decode overlaps the device step (cv2 releases the
     # GIL)
-    make_it = lambda: PrefetchIterator(ds, depth=2 * args.batch_size)
+    make_it = lambda: PrefetchIterator(ds, depth=2 * global_batch)
     after = None
     if args.sample_every and args.freq_loss:
         after = previews(train_step, args.sample_every, generator,
                          preview_saver(args.output_dir))
     return train_loop(
         step_fn, state, make_batch, make_it, start_step=start_step,
-        max_train_steps=args.max_train_steps, global_batch=args.batch_size,
-        checkpoints=ckpt,
-        write_row=jsonl_writer(os.path.join(args.output_dir,
-                                            'metrics.jsonl')),
+        max_train_steps=args.max_train_steps, global_batch=global_batch,
+        checkpoints=ckpt, write_row=row_writer(args.output_dir),
         learning_rate=args.learning_rate, generator=generator,
         after_step=after)
 

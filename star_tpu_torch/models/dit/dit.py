@@ -29,6 +29,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -37,6 +38,9 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.attention import dot_product_attention_packed
 from ...ops.fused_ln import fused_ln
 from ...ops.qk_ln_rope import LOG2E, qk_ln_rope
+from ...parallel.mesh import AXIS_CONTEXT, Mesh, collective
+from ...parallel.sharding import copy_to_tp, reduce_from_tp
+from ...parallel.ulysses import ulysses_attention
 from ..layers import Conv2d, zero_
 from ..unet.blocks import silu32, sinusoidal_embedding
 
@@ -121,13 +125,18 @@ class TemporalLIEMTokens(nn.Module):
 
 
 class LoraDense(nn.Module):
-    """Dense with an optional additive LoRA (lora_b zero-initialised)."""
+    """Dense with an optional additive LoRA (lora_b zero-initialised).
+    Split by parallel.shard_params, `tp_mode` is 'column' (base and lora_b
+    hold this rank's output rows, lora_a whole) or 'row' (base and lora_a
+    hold this rank's input features; their partial products are
+    all-reduced over `tp_group`)."""
 
     def __init__(self, in_features: int, features: int, lora_rank: int = 0,
                  bias: bool = True):
         super().__init__()
         self.base = nn.Linear(in_features, features, bias=bias)
         self.lora_rank = lora_rank
+        self.tp_mode, self.tp_group = None, None
         if lora_rank > 0:
             self.lora_a = nn.Linear(in_features, lora_rank, bias=False)
             self.lora_b = zero_(nn.Linear(lora_rank, features, bias=False))
@@ -137,16 +146,54 @@ class LoraDense(nn.Module):
         each computed from its own rows of the weights (contiguous, with
         the same values as splitting the whole output)."""
         a = self.lora_a(x) if self.lora_rank > 0 else None
+        row = self.tp_mode == 'row'
+        if self.tp_mode == 'column':
+            x = copy_to_tp(x, self.tp_group)
+            a = None if a is None else copy_to_tp(a, self.tp_group)
         n = self.base.out_features // parts
         outs = []
         for i in range(parts):
             rows = slice(i * n, (i + 1) * n)
             bias = None if self.base.bias is None else self.base.bias[rows]
-            y = F.linear(x, self.base.weight[rows], bias)
+            if row:
+                y = reduce_from_tp(F.linear(x, self.base.weight[rows]),
+                                   self.tp_group)
+                y = y if bias is None else y + bias
+            else:
+                y = F.linear(x, self.base.weight[rows], bias)
             if a is not None:
                 y = y + F.linear(a, self.lora_b.weight[rows])
             outs.append(y)
         return outs[0] if parts == 1 else tuple(outs)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows [B, S/P, C] of a stream, concatenated along the
+    rows on every rank; the gradient of a rank's rows is the sum of the
+    ranks' gradients of them."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        collective(x, group)
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(
+            group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        collective(g, ctx.group)
+        dist.all_reduce(g, group=ctx.group)
+        rows = g.shape[1] // dist.get_world_size(ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g[:, r * rows:(r + 1) * rows], None
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _GatherRows.apply(x, group)
 
 
 class DiTLayer(nn.Module):
@@ -206,7 +253,7 @@ class DiTLayer(nn.Module):
                 .permute(0, 3, 1, 2, 4).reshape(b, n_img, c)
         attn_in = torch.cat([text_in, img_in, img_tail], dim=1)
         q, k, v = self.qkv(attn_in, parts=3)
-        hd = c // heads
+        hd = q.shape[-1] // heads     # heads: this rank's, under TP
         q = qk_ln_rope(q, self.q_ln_scale, self.q_ln_bias, rope_cos, rope_sin,
                        heads, fold_scale=LOG2E / math.sqrt(hd))
         k = qk_ln_rope(k, self.k_ln_scale, self.k_ln_bias, rope_cos, rope_sin,
@@ -229,6 +276,58 @@ class DiTLayer(nn.Module):
         return torch.cat([text, img], dim=1)
 
 
+    def forward_sp(self, h: torch.Tensor, emb_act: torch.Tensor,
+                   rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                   grid: tuple[int, int, int], group,
+                   offset: int) -> torch.Tensor:
+        """The layer on this rank's rows h [B, S/P, C] of the padded
+        stream, the rows offset, offset+1, ...; rope_cos/rope_sin are
+        those rows' tables. Text rows take the text modulation, the
+        others the image one, row by row."""
+        b, s, c = h.shape
+        tl, heads = self.text_length, self.num_heads
+        t_size, hp, wp = grid
+        n_img = t_size * hp * wp
+        s_full = s * dist.get_world_size(group)
+        (sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp, t_sh_msa, t_sc_msa,
+         t_g_msa, t_sh_mlp, t_sc_mlp, t_g_mlp) = \
+            self.adaln(emb_act).chunk(12, dim=-1)
+        text = (torch.arange(offset, offset + s, device=h.device)
+                < tl)[None, :, None]
+        pick = lambda a_t, a_i: torch.where(text, a_t[:, None, :],
+                                            a_i[:, None, :])
+        hn = fused_ln(h, self.input_ln_scale, self.input_ln_bias, 1e-5)
+        attn_in = hn * (1.0 + pick(t_sc_msa, sc_msa)) + pick(t_sh_msa, sh_msa)
+        if self.liem:
+            full = gather_rows(attn_in, group)
+            img = full[:, tl:tl + n_img]
+            spa = self.spa_local(img.reshape(b * t_size, hp, wp, c))
+            tmp = spa.reshape(b, t_size, hp, wp, c).permute(0, 2, 3, 1, 4) \
+                .reshape(b * hp * wp, t_size, c)
+            img = self.temp_local(tmp).reshape(b, hp, wp, t_size, c) \
+                .permute(0, 3, 1, 2, 4).reshape(b, n_img, c)
+            full = torch.cat([full[:, :tl], img, full[:, tl + n_img:]], 1)
+            attn_in = full[:, offset:offset + s]
+        q, k, v = self.qkv(attn_in, parts=3)
+        hd = q.shape[-1] // heads
+        q = qk_ln_rope(q, self.q_ln_scale, self.q_ln_bias, rope_cos, rope_sin,
+                       heads, fold_scale=LOG2E / math.sqrt(hd))
+        k = qk_ln_rope(k, self.k_ln_scale, self.k_ln_bias, rope_cos, rope_sin,
+                       heads)
+        to4 = lambda x: x.reshape(b, s, heads, hd)
+        valid = tl + n_img
+        attn = ulysses_attention(
+            to4(q), to4(k), to4(v), group,
+            kv_valid=valid if valid < s_full else None,
+            prescaled=True).reshape(b, s, q.shape[-1])
+        h = h + pick(t_g_msa, g_msa) * self.dense(attn)
+        m = fused_ln(h, self.post_ln_scale, self.post_ln_bias, 1e-5)
+        m = m * (1.0 + pick(t_sc_mlp, sc_mlp)) + pick(t_sh_mlp, sh_mlp)
+        hdn = self.mlp_fc(m)
+        hdn = F.gelu(hdn.float(), approximate='tanh').to(hdn.dtype)
+        return h + pick(t_g_mlp, g_mlp) * self.mlp_proj(hdn)
+
+
 class CogVideoDiT(nn.Module):
     """x [B, T, H, W, Cin] (noisy || LQ channel concat, Cin = 2 Cz; Cz alone
     for the stock model, liem=False), t_idx [B] int, context
@@ -238,10 +337,12 @@ class CogVideoDiT(nn.Module):
                  num_heads: int = 48, patch_size: int = 2,
                  latent_channels: int = 16, text_hidden_size: int = 4096,
                  text_length: int = 226, time_embed_dim: int = 512,
-                 lora_rank: int = 0, liem: bool = True, remat: bool = True):
+                 lora_rank: int = 0, liem: bool = True, remat: bool = True,
+                 sp_group=None):
         super().__init__()
         c, p = hidden_size, patch_size
         self.remat = remat
+        self.sp_group = sp_group     # Ulysses SP over this group
         self.hidden_size, self.num_heads, self.patch_size = c, num_heads, p
         self.latent_channels, self.text_length = latent_channels, text_length
         in_channels = latent_channels * (2 if liem else 1)
@@ -290,25 +391,42 @@ class CogVideoDiT(nn.Module):
         emb = emb.reshape(b, t * hp * wp, c)
         text_emb = self.text_proj(context.to(dtype))
         h = torch.cat([text_emb, emb], dim=1)
-        # the stream is carried at a multiple of 16 tokens; the layers mask
-        # the dead tail out of attention and it is dropped at the end
+        # the stream is carried at a multiple of 16 tokens (and of the SP
+        # ranks); the layers mask the dead tail out of attention and it is
+        # dropped at the end
+        group = self.sp_group
+        if isinstance(group, Mesh):
+            group = group.group(AXIS_CONTEXT)
+        n = 1 if group is None else dist.get_world_size(group)
+        assert self.num_heads % n == 0, (
+            f'Ulysses SP needs heads ({self.num_heads}) divisible by the '
+            f'sequence-parallel size {n}')
+        mult = 16 * n // math.gcd(16, n)
         s_real = self.text_length + t * hp * wp
-        s_pad = -(-s_real // 16) * 16
+        s_pad = -(-s_real // mult) * mult
         if s_pad != s_real:
             h = F.pad(h, (0, 0, 0, s_pad - s_real))
         cos, sin = self.rope(t, hp, wp, s_pad, x.device)
+        grid = (t, hp, wp)
+        if n > 1:      # this rank's rows
+            rows = s_pad // n
+            off = dist.get_rank(group) * rows
+            h, cos, sin = (a[..., off:off + rows, :] for a in (h, cos, sin))
+            run = lambda layer, h: layer.forward_sp(h, emb_act, cos, sin,
+                                                    grid, group, off)
+        else:
+            run = lambda layer, h: layer(h, emb_act, cos, sin, grid)
         remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            if remat:
-                h = checkpoint(layer, h, emb_act, cos, sin, (t, hp, wp),
-                               use_reentrant=False)
-            else:
-                h = layer(h, emb_act, cos, sin, (t, hp, wp))
+            h = checkpoint(run, layer, h, use_reentrant=False) if remat \
+                else run(layer, h)
 
         # both final norms run over the whole stream (one K10 each) and the
         # image rows are taken after
         h = fused_ln(h, self.pre_final_ln_scale, self.pre_final_ln_bias, 1e-5)
         h = fused_ln(h, self.final_ln_scale, self.final_ln_bias, 1e-6)
+        if n > 1:
+            h = gather_rows(h, group)
         img = h[:, self.text_length:s_real]
         f_shift, f_scale = self.final_adaln(emb_act).chunk(2, dim=-1)
         img = self.final_linear(modulate(img, f_shift, f_scale))

@@ -8,8 +8,12 @@ cross-attention), frame attention through K4, the temporal conv chain
 through the fused GN+SiLU+tconv kernel K5 with threaded statistics, and
 the transformer streams' LayerNorms through K10 (the TemporalLIEM-gated
 norm1) and K11 (each attention's residual add fused with the next norm).
-Dropout is not ported: the blocks run the deterministic mode, the one
-inference and training (`deterministic=True`) take.
+
+Dropout (`deterministic=False`, training only): ResBlock drops before its
+out_conv, and TemporalConvBlockV2 leaves K5 for the unfused chain (GN,
+SiLU, dropout before every conv but the first, ops/temporal_conv.py), as
+the JAX blocks do: dropout between the GN and the conv breaks K5's
+threaded statistics. The masks come from a DropoutMasks, one a forward.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ from torch import nn
 from ...ops.attention import dot_product_attention_packed
 from ...ops.fused_temporal_conv import fused_gn_silu_tconv3
 from ...ops.fused_ln import fused_ln, fused_resid_ln
-from ...ops.norms import gated_layer_norm
+from ...ops.norms import gated_layer_norm, group_norm
 from ...ops.temporal_attention import temporal_attention
+from ...ops.temporal_conv import temporal_conv3
 from ...ops.upsample_conv import upsample_conv2x_cropped
 from ..layers import (Conv2d, GroupNorm, LayerNorm, NormParams, TConvParams,
                       zero_)
@@ -43,6 +48,48 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 def silu32(x: torch.Tensor) -> torch.Tensor:
     """SiLU computed in fp32, returned in x.dtype."""
     return F.silu(x.float()).to(x.dtype)
+
+
+class DropoutMasks:
+    """The keep masks of one forward's dropout sites, by site name (the
+    flax module path of the nn.Dropout, '.'-joined, e.g.
+    'unet.enc_0_0_res.temporal_conv.Dropout_1'). A site's mask is taken
+    from `masks` when given there (tests inject the JAX draws), else drawn
+    from `generator` the first time the site asks; a site that asks again
+    (remat's recompute in the backward) gets the same mask. With
+    `shard=(rank, n)` a mask is drawn for n times the local rows and the
+    rank's rows are kept, so that data-parallel ranks draw the masks of
+    the global batch."""
+
+    def __init__(self, generator: torch.Generator | None = None,
+                 masks: dict | None = None,
+                 shard: tuple[int, int] = (0, 1)):
+        self.generator, self.shard = generator, shard
+        self.masks = dict(masks or {})
+
+    def __call__(self, site: str, x: torch.Tensor,
+                 keep: float) -> torch.Tensor:
+        if site not in self.masks:
+            rank, n = self.shard
+            shape = (x.shape[0] * n,) + tuple(x.shape[1:])
+            u = torch.rand(shape, generator=self.generator, device=x.device)
+            self.masks[site] = (u < keep)[rank * x.shape[0]:
+                                          (rank + 1) * x.shape[0]]
+        return self.masks[site].to(x.device)
+
+
+def dropout(x: torch.Tensor, rate: float, masks: DropoutMasks,
+            prefix: str, index: int) -> torch.Tensor:
+    """flax.linen.Dropout: keep with probability 1 - rate, kept values
+    scaled by 1 / (1 - rate), in x.dtype. The site is the block's
+    `index`-th nn.Dropout, flax's auto-name under the block's name
+    `prefix`."""
+    keep = 1.0 - rate
+    if keep == 0.0:
+        return torch.zeros_like(x)
+    site = f'{prefix}.Dropout_{index}' if prefix else f'Dropout_{index}'
+    return torch.where(masks(site, x, keep), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Attention(nn.Module):
@@ -228,19 +275,34 @@ class TemporalTransformer(nn.Module):
 class TemporalConvBlockV2(nn.Module):
     """Four GN+SiLU+(3,1,1)-conv stages with a residual, each one call of
     the fused kernel K5: GN statistics thread from stage to stage and the
-    residual folds into the last stage."""
+    residual folds into the last stage. With dropout active (`masks`
+    given and dropout > 0) the unfused chain instead: GN, SiLU, dropout
+    before every conv but the first, temporal_conv3; the residual added
+    at the end."""
     names = ('conv1', 'conv2', 'conv3', 'conv4')
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
+        self.dropout_site = ''     # its module name (name_dropout_sites)
         for n in self.names:
             setattr(self, f'{n}_norm', NormParams(channels))
             cv = TConvParams(channels, channels)
             setattr(self, n, zero_(cv) if n == 'conv4' else cv)
 
-    def forward(self, x):                  # x [B, F, H, W, C]
-        b, f, h, w, c = x.shape
+    def forward(self, x, masks: DropoutMasks | None = None):
+        b, f, h, w, c = x.shape          # x [B, F, H, W, C]
         identity = x.reshape(b, f, h * w, c)
+        if masks is not None and self.dropout > 0:
+            y = identity
+            for i, n in enumerate(self.names):
+                gn, cv = getattr(self, f'{n}_norm'), getattr(self, n)
+                y = silu32(group_norm(y, gn.weight, gn.bias))
+                if i > 0:
+                    y = dropout(y, self.dropout, masks, self.dropout_site,
+                                i - 1)
+                y = temporal_conv3(y, cv.weight, cv.bias)
+            return x + y.reshape(b, f, h, w, c)
         y, stats = identity, None
         for i, n in enumerate(self.names):
             gn, cv = getattr(self, f'{n}_norm'), getattr(self, n)
@@ -255,8 +317,11 @@ class ResBlock(nn.Module):
     """GN/SiLU/conv residual block with the timestep-embedding add and a
     trailing temporal conv block."""
 
-    def __init__(self, in_channels: int, out_channels: int, emb_dim: int):
+    def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
+        self.dropout_site = ''     # its module name (name_dropout_sites)
         self.in_norm = GroupNorm(in_channels)
         self.in_conv = Conv2d(in_channels, out_channels, 3, padding=1)
         self.emb_proj = nn.Linear(emb_dim, out_channels)
@@ -266,16 +331,31 @@ class ResBlock(nn.Module):
         self.skip = (Conv2d(in_channels, out_channels, 1)
                      if in_channels != out_channels else None)
         self.temporal_conv = TemporalConvBlockV2(out_channels)
+        name_dropout_sites(self)
 
-    def forward(self, x, emb, frames: int):
+    def forward(self, x, emb, frames: int,
+                masks: DropoutMasks | None = None):
+        """masks: the forward's DropoutMasks when dropout is active."""
         bf, hh, ww, _ = x.shape
         h = self.in_conv(silu32(self.in_norm(x)))
         h = h + self.emb_proj(silu32(emb))[:, None, None, :]
-        h = self.out_conv(silu32(self.out_norm(h)))
+        h = silu32(self.out_norm(h))
+        if masks is not None and self.dropout > 0:
+            h = dropout(h, self.dropout, masks, self.dropout_site, 0)
+        h = self.out_conv(h)
         h = (x if self.skip is None else self.skip(x)) + h
         c = h.shape[-1]
-        h5 = self.temporal_conv(h.reshape(bf // frames, frames, hh, ww, c))
+        h5 = self.temporal_conv(h.reshape(bf // frames, frames, hh, ww, c),
+                                masks)
         return h5.reshape(bf, hh, ww, c)
+
+
+def name_dropout_sites(root: nn.Module) -> None:
+    """Give each dropout-holding block under `root` its module name, the
+    prefix of its sites' names."""
+    for name, mod in root.named_modules():
+        if isinstance(mod, (ResBlock, TemporalConvBlockV2)):
+            mod.dropout_site = name
 
 
 class Downsample(nn.Module):

@@ -14,9 +14,13 @@ that point (skip taps and control residuals included).
 remat (training): under grad, each ResBlock, SpatialTransformer and
 TemporalTransformer runs under torch.utils.checkpoint, which keeps only
 its inputs and recomputes it in the backward, as the JAX package wraps the
-same blocks in nn.remat. Dropout is not ported: the forward takes
-`deterministic=True` (the only mode training uses) and raises on
-`deterministic=False` while dropout > 0.
+same blocks in nn.remat.
+
+Dropout: with `deterministic=False` the forward takes a DropoutMasks
+(blocks.py) and each ResBlock drops at its own rate (`dropout`) and its
+temporal conv block at 0.1, as the JAX modules do; the masks are cached by
+site, so remat's recompute reuses them. `deterministic=True` (inference,
+and the training CLIs) runs the fused chains.
 """
 
 from __future__ import annotations
@@ -29,9 +33,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..layers import Conv2d, GroupNorm, zero_
-from .blocks import (Downsample, ResBlock, SpatialTransformer,
-                     TemporalTransformer, Upsample, silu32,
-                     sinusoidal_embedding)
+from .blocks import (DropoutMasks, Downsample, ResBlock, SpatialTransformer,
+                     TemporalTransformer, Upsample, name_dropout_sites,
+                     silu32, sinusoidal_embedding)
 
 
 class VideoUNetTrunk(nn.Module):
@@ -71,7 +75,8 @@ class VideoUNetTrunk(nn.Module):
         scale, ch = 1.0, dim
         for i, out_d in enumerate(enc_dims[1:]):
             for j in range(num_res_blocks):
-                setattr(self, f'enc_{i}_{j}_res', ResBlock(ch, out_d, emb))
+                setattr(self, f'enc_{i}_{j}_res',
+                        ResBlock(ch, out_d, emb, dropout))
                 ch = out_d
                 if scale in self.attn_scales:
                     setattr(self, f'enc_{i}_{j}_spatial', spatial(out_d))
@@ -82,15 +87,16 @@ class VideoUNetTrunk(nn.Module):
                 scale /= 2.0
                 taps.append(ch)
         mid = enc_dims[-1]
-        self.mid_res1 = ResBlock(mid, mid, emb)
+        self.mid_res1 = ResBlock(mid, mid, emb, dropout)
         self.mid_spatial = spatial(mid)
         self.mid_temporal = temporal(mid)
-        self.mid_res2 = ResBlock(mid, mid, emb)
+        self.mid_res2 = ResBlock(mid, mid, emb, dropout)
 
         if is_controlnet:
             for k, c in enumerate(taps):
                 setattr(self, f'zero_conv_{k}', zero_(Conv2d(c, c, 1)))
             self.middle_out = zero_(Conv2d(mid, mid, 1))
+            name_dropout_sites(self)
             return
 
         dec_dims = [dim * u for u in (self.dim_mult[-1],)
@@ -99,7 +105,7 @@ class VideoUNetTrunk(nn.Module):
             for j in range(num_res_blocks + 1):
                 skip = taps.pop()
                 setattr(self, f'dec_{i}_{j}_res',
-                        ResBlock(ch + skip, out_d, emb))
+                        ResBlock(ch + skip, out_d, emb, dropout))
                 ch = out_d
                 if scale in self.attn_scales:
                     setattr(self, f'dec_{i}_{j}_spatial', spatial(out_d))
@@ -109,15 +115,19 @@ class VideoUNetTrunk(nn.Module):
                     scale *= 2.0
         self.head_norm = GroupNorm(dim)
         self.head_conv = zero_(Conv2d(dim, out_channels, 3, padding=1))
+        name_dropout_sites(self)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
                 hint: Optional[torch.Tensor] = None,
                 controls: Optional[Tuple[torch.Tensor, ...]] = None,
-                cfg_pair: bool = False, deterministic: bool = True):
-        if not deterministic and self.dropout > 0:
-            raise NotImplementedError(
-                'dropout (deterministic=False) is not ported; see ROADMAP.md '
-                'section 1, item 4 (UNet + ControlNet)')
+                cfg_pair: bool = False, deterministic: bool = True,
+                dropout_masks: Optional[DropoutMasks] = None):
+        """dropout_masks: the masks of this forward, needed with
+        deterministic=False."""
+        if not deterministic and dropout_masks is None:
+            raise ValueError('deterministic=False draws dropout masks: pass '
+                             'dropout_masks=DropoutMasks(generator)')
+        masks = None if deterministic else dropout_masks
         b, f, hh, ww, cin = x.shape
         dtype = self.conv_in.weight.dtype
         w1, w2 = self.time_embed_1, self.time_embed_2
@@ -171,7 +181,8 @@ class VideoUNetTrunk(nn.Module):
         scale = 1.0
         for i in range(len(self.dim_mult)):
             for j in range(self.num_res_blocks):
-                x = run(getattr(self, f'enc_{i}_{j}_res'), x, state['e'], f)
+                x = run(getattr(self, f'enc_{i}_{j}_res'), x, state['e'], f,
+                        masks)
                 if scale in self.attn_scales:
                     x = run_spatial(f'enc_{i}_{j}_spatial', x)
                     x = run_temporal(f'enc_{i}_{j}_temporal', x)
@@ -181,10 +192,10 @@ class VideoUNetTrunk(nn.Module):
                 scale /= 2.0
                 tap(x)
 
-        x = run(self.mid_res1, x, state['e'], f)
+        x = run(self.mid_res1, x, state['e'], f, masks)
         x = run_spatial('mid_spatial', x)
         x = run_temporal('mid_temporal', x)
-        x = run(self.mid_res2, x, state['e'], f)
+        x = run(self.mid_res2, x, state['e'], f, masks)
 
         if self.is_controlnet:
             xs.append(self.middle_out(x))
@@ -199,7 +210,8 @@ class VideoUNetTrunk(nn.Module):
                 if controls_list is not None:
                     skip = skip + controls_list.pop().to(dtype)
                 x = torch.cat([x, skip], dim=-1)
-                x = run(getattr(self, f'dec_{i}_{j}_res'), x, state['e'], f)
+                x = run(getattr(self, f'dec_{i}_{j}_res'), x, state['e'], f,
+                        masks)
                 if scale in self.attn_scales:
                     x = run_spatial(f'dec_{i}_{j}_spatial', x)
                     x = run_temporal(f'dec_{i}_{j}_temporal', x)
@@ -231,10 +243,14 @@ class ControlledV2VUNet(nn.Module):
                   context_dim=context_dim, dropout=dropout, remat=remat)
         self.unet = VideoUNetTrunk(**kw)
         self.controlnet = VideoUNetTrunk(is_controlnet=True, **kw)
+        name_dropout_sites(self)
 
     def forward(self, x, t, y, hint, cfg_pair: bool = False,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                dropout_masks: Optional[DropoutMasks] = None):
         controls = self.controlnet(x, t, y, hint=hint, cfg_pair=cfg_pair,
-                                   deterministic=deterministic)
+                                   deterministic=deterministic,
+                                   dropout_masks=dropout_masks)
         return self.unet(x, t, y, controls=controls, cfg_pair=cfg_pair,
-                         deterministic=deterministic)
+                         deterministic=deterministic,
+                         dropout_masks=dropout_masks)

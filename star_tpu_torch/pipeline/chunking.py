@@ -3,7 +3,9 @@
 
 50%-overlap windows of max_chunk_len frames, each denoised independently per
 solver step and stitched by cutting half the overlap from each side.
-Equal-length windows fold into the batch dimension (one UNet call for all).
+Equal-length windows fold into the batch dimension (one UNet call for all);
+under a mesh whose 'data' axis divides that folded batch, each data rank
+denoises its share of the windows and the results are all-gathered.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Callable, List, Sequence, Tuple
 
 import torch
+
+from ..parallel.mesh import AXIS_DATA, data_rows, gather_data_rows
 
 
 def sliding_windows_1d(length: int, window_size: int,
@@ -60,12 +64,24 @@ def stitch_slices(chunk_inds: Sequence[Tuple[int, int]]):
 def chunked_x0_fn(denoise_chunk: Callable[[torch.Tensor, torch.Tensor, int],
                                           torch.Tensor],
                   hint: torch.Tensor,
-                  chunk_inds: Sequence[Tuple[int, int]]):
+                  chunk_inds: Sequence[Tuple[int, int]], mesh=None):
     """Whole-video x0 function from a per-chunk denoiser
     denoise_chunk(xt_chunk, hint_chunk, t) -> x0_chunk; xt/hint are
-    [B, F, H, W, C] and chunking is over F."""
+    [B, F, H, W, C] and chunking is over F. mesh: an optional
+    parallel.Mesh; with data > 1 dividing a folded window batch, each data
+    rank denoises its rows of it (the windows are independent within a
+    solver step) and every rank gets the whole batch back; otherwise
+    every rank runs them all."""
     chunk_inds = list(chunk_inds)
     spans = stitch_slices(chunk_inds)
+    n = 1 if mesh is None else mesh.size(AXIS_DATA)
+
+    def denoise(xs, hs, t):
+        if n > 1 and xs.shape[0] % n == 0:
+            return gather_data_rows(denoise_chunk(data_rows(xs, mesh),
+                                                  data_rows(hs, mesh), t),
+                                    mesh)
+        return denoise_chunk(xs, hs, t)
 
     def x0_fn(xt: torch.Tensor, t: int) -> torch.Tensor:
         if len(chunk_inds) == 1:
@@ -79,7 +95,7 @@ def chunked_x0_fn(denoise_chunk: Callable[[torch.Tensor, torch.Tensor, int],
                             for i in idxs], dim=0)
             hs = torch.cat([hint[:, chunk_inds[i][0]:chunk_inds[i][1]]
                             for i in idxs], dim=0)
-            x0s = denoise_chunk(xs, hs, t)
+            x0s = denoise(xs, hs, t)
             for k, i in enumerate(idxs):
                 results[i] = x0s[k * b:(k + 1) * b]
         pieces = [results[i][:, s0:s1] for i, (s0, s1) in enumerate(spans)]

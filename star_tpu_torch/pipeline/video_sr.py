@@ -53,8 +53,11 @@ class STARPipeline:
                  config: PipelineConfig = PipelineConfig(),
                  schedule: Optional[Schedule] = None,
                  device: str | torch.device = 'cuda',
-                 time_stages: bool = False):
+                 time_stages: bool = False, mesh=None):
+        """mesh: an optional parallel.Mesh; the solver's independent chunk
+        windows are split over its 'data' axis (chunked_x0_fn)."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.models = models
         self.cfg = config
         self.schedule = schedule or default_star_schedule()
@@ -132,7 +135,8 @@ class STARPipeline:
         chunk_inds = (make_chunks(f, cfg.max_chunk_len,
                                   chunk_overlap_ratio=cfg.chunk_overlap_ratio)
                       if f > cfg.max_chunk_len else [(0, f)])
-        x0_fn = chunked_x0_fn(denoise_chunk, z_lq, chunk_inds)
+        x0_fn = chunked_x0_fn(denoise_chunk, z_lq, chunk_inds,
+                              mesh=self.mesh)
         sigmas = build_sigma_ladder(
             self.schedule, steps=sc.steps, t_max=sc.total_noise_levels - 1,
             t_min=0, solver_mode=sc.solver_mode,

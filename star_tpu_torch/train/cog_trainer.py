@@ -9,9 +9,11 @@ from the DiT's v-prediction, loss = mean(w (x0_hat - x0)^2) with
 w = 1 / (1 - a^2); with the frequency loss, the timestep-aware Fourier
 term of x0_hat decoded to pixels is added.
 
-The mixed precision and the optimizer are the I2VGen trainer's
-(train/trainer.py): fp32 masters of the trainable set beside the bf16
-module, updated in place by clip_by_global_norm + AdamW. The AdamW is
+The mixed precision, the optimizer and the data parallelism are the
+I2VGen trainer's (train/trainer.py): fp32 masters of the trainable set
+beside the bf16 module, updated in place by clip_by_global_norm + AdamW;
+under a mesh with data > 1, the global batch's draws and metrics and the
+gradients averaged over 'data'. The AdamW is
 optax.adamw's default, which the JAX step uses: weight decay 1e-4, no
 warmup. The EMA covers the masters; the JAX EMA covers the whole tree,
 whose frozen leaves it leaves where they are.
@@ -26,9 +28,12 @@ import torch
 from torch import nn
 
 from ..diffusion.zero_snr import ZeroSNRDDPMDiscretization
+from ..parallel.mesh import AXIS_DATA, Mesh, all_reduce, draw_rows, \
+    gather_data_rows
 from .losses import star_sr_loss
 from .trainer import (Optimizer, TrainConfig, TrainState, apply_update,
-                      global_norm, make_train_state, trainable_mask)
+                      data_parallel, make_train_state, mean_grads_over_data,
+                      trainable_mask)
 
 COG_TRAINABLE = ('lora_a', 'lora_b', 'final_linear', 'final_adaln',
                  'final_ln', 'proj_sr', 'spa_local', 'temp_local')
@@ -70,13 +75,15 @@ def make_cog_train_state(cfg: CogTrainConfig, model: nn.Module
 
 def make_cog_train_step(cfg: CogTrainConfig, model: nn.Module, tx: Optimizer,
                         vae_decode: Optional[Callable[[torch.Tensor],
-                                                      torch.Tensor]] = None):
+                                                      torch.Tensor]] = None,
+                        mesh: Optional[Mesh] = None):
     """Build the train step over `model` (the DiT that make_cog_train_state
     prepared; called as model(x, idx, y)).
 
     batch: dict with gt_latent [B, T, h, w, C], lq_latent [B, T, h, w, C],
     y [B, L, 4096], optional gt_pixels [B, F, H, W, 3] (for the frequency
-    loss). The indices and the noise are drawn from `generator` unless
+    loss): this rank's rows of the global batch under a mesh with
+    data > 1. The indices and the noise are drawn from `generator` unless
     given as `idx` [B] and `noise` (tests replay the JAX draws through
     them).
 
@@ -85,6 +92,11 @@ def make_cog_train_step(cfg: CogTrainConfig, model: nn.Module, tx: Optimizer,
           the gradients stay in the trainable parameters' .grad
     """
     live = {n: p for n, p in model.named_parameters() if n in tx.names}
+    dp = data_parallel(mesh)
+    if dp and cfg.freq_grad:
+        raise ValueError('freq_grad under data parallelism: the frequency '
+                         'term is computed on the gathered batch, without '
+                         'gradient')
     sqrt_alphas_np = ZeroSNRDDPMDiscretization(
         shift_scale=cfg.shift_scale).get_sqrt_alphas(cfg.num_idx, flip=False)
     tables: dict = {}
@@ -101,11 +113,12 @@ def make_cog_train_step(cfg: CogTrainConfig, model: nn.Module, tx: Optimizer,
                        noise: Optional[torch.Tensor] = None):
         gt = batch['gt_latent'].float()
         if idx is None:
-            idx = torch.randint(0, cfg.num_idx, (gt.shape[0],),
-                                generator=generator, device=gt.device)
+            idx = draw_rows(lambda s: torch.randint(
+                0, cfg.num_idx, s, generator=generator, device=gt.device),
+                gt.shape[:1], mesh)
         if noise is None:
-            noise = torch.randn(gt.shape, generator=generator,
-                                device=gt.device)
+            noise = draw_rows(lambda s: torch.randn(
+                s, generator=generator, device=gt.device), gt.shape, mesh)
         for p in live.values():
             p.grad = None
         a = sqrt_alphas(gt.device)[idx].reshape((-1,) + (1,) * (gt.ndim - 1))
@@ -118,11 +131,23 @@ def make_cog_train_step(cfg: CogTrainConfig, model: nn.Module, tx: Optimizer,
         loss_l2 = torch.mean(w * (x0_hat - gt) ** 2)
         metrics = {'loss_v': loss_l2}
         loss = loss_l2
+        if dp:
+            # this rank's mean; the metrics are the global batch's
+            loss_l2.backward()
+            loss_l2 = all_reduce(loss_l2.detach().clone(), mesh,
+                                 AXIS_DATA) / mesh.size(AXIS_DATA)
+            metrics = {'loss_v': loss_l2}
+            loss = loss_l2
         if cfg.freq_loss and vae_decode is not None and 'gt_pixels' in batch:
             with torch.set_grad_enabled(cfg.freq_grad):
                 pred_pixels = vae_decode(x0_hat if cfg.freq_grad
                                          else x0_hat.detach())
-            _, m2 = star_sr_loss(v, v, idx, pred_pixels, batch['gt_pixels'],
+            gt_pixels = batch['gt_pixels']
+            if dp:
+                pred_pixels, gt_pixels, idx = (
+                    gather_data_rows(x.detach(), mesh)
+                    for x in (pred_pixels, gt_pixels, idx))
+            _, m2 = star_sr_loss(v, v, idx, pred_pixels, gt_pixels,
                                  freq_grad=cfg.freq_grad)
             tn = idx.float() / 999.0
             ct = torch.mean(tn ** 2)
@@ -132,10 +157,12 @@ def make_cog_train_step(cfg: CogTrainConfig, model: nn.Module, tx: Optimizer,
             metrics.update(loss_low=m2['loss_low'],
                            loss_high=m2['loss_high'])
         metrics['total_loss'] = loss
-        loss.backward()
+        if not dp:
+            loss.backward()
+        mean_grads_over_data(live, mesh)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics['grad_norm'] = global_norm(
-            p.grad for p in live.values() if p.grad is not None)
+        metrics['grad_norm'] = tx.global_norm(
+            {n: p.grad for n, p in live.items()})
         return metrics
 
     def train_step(state: TrainState, batch,

@@ -17,6 +17,15 @@ In-place updates: `train_step` steps the masters, the moments and the
 module's trainable parameters in place (the returned TrainState shares
 them with the one passed in), where the JAX step returns new arrays; at
 the full width these are gigabytes that need not be copied.
+
+Parallel (parallel/): under a mesh with a 'data' group each rank takes
+its rows of the global batch, draws the timesteps and noise of the whole
+global batch and keeps its rows (so the draws are one process's at the
+global batch), and averages the gradients over 'data' before the
+optimizer; the metrics are those of the global batch. ZeRO-1 (parallel.zero) splits
+the AdamW moments over 'data'. A model split by parallel.shard_params
+holds its rank's part of each split parameter, and so do the masters and
+their moments; the global norm counts each element once.
 """
 
 from __future__ import annotations
@@ -28,6 +37,11 @@ import torch
 from torch import nn
 
 from ..diffusion import DiffusionTables, diffuse, get_velocity, get_x0
+from ..models.unet.blocks import DropoutMasks
+from ..parallel.mesh import (AXIS_DATA, AXIS_TENSOR, Mesh, all_reduce,
+                             draw_rows, gather_data_rows)
+from ..parallel.sharding import shard, unshard
+from ..parallel.zero import _shardable_axis, zero_gather, zero_part
 from .ema import init_ema, update_ema
 from .losses import star_sr_loss
 
@@ -99,13 +113,27 @@ class Optimizer:
     gradients scaled by max_grad_norm / norm when the norm reaches it, then
     torch's AdamW (the same update and decoupled decay as optax.adamw),
     with the linear warmup of optax.linear_schedule(0, lr, warmup_steps):
-    learning rate lr * min(count, n) / n at update `count` (0 first)."""
+    learning rate lr * min(count, n) / n at update `count` (0 first).
+
+    The norm is that of the whole gradient, before any ZeRO part steps.
+    `shard` (parallel.zero.shard_opt_state) makes the AdamW step this
+    rank's part of each master (a view), then all-gathers the parts;
+    `tp_plan`/`tp_mesh` name the masters split by tensor parallelism."""
 
     def __init__(self, cfg: TrainConfig, params: dict[str, torch.Tensor]):
         self.cfg = cfg
         self.names = list(params)
-        self.adamw = torch.optim.AdamW(
-            list(params.values()), lr=cfg.learning_rate,
+        self.masters = params
+        self.mesh, self.axis = None, AXIS_DATA
+        self.zero_axes: dict = {n: None for n in self.names}
+        self.tp_plan: dict = {}
+        self.tp_mesh: Optional[Mesh] = None
+        self.adamw = self._adamw(list(params.values()))
+
+    def _adamw(self, tensors) -> torch.optim.AdamW:
+        cfg = self.cfg
+        return torch.optim.AdamW(
+            tensors, lr=cfg.learning_rate,
             betas=(cfg.adam_beta1, cfg.adam_beta2), eps=cfg.adam_eps,
             weight_decay=cfg.weight_decay)
 
@@ -113,21 +141,86 @@ class Optimizer:
         n = self.cfg.warmup_steps
         return self.cfg.learning_rate * (min(count, n) / n if n else 1.0)
 
+    def shard(self, mesh: Mesh, axis: str = AXIS_DATA) -> None:
+        """ZeRO-1 over `axis`: from here on this rank steps (and holds the
+        moments of) its part of each master."""
+        full = self.full_state_dict()
+        self.mesh, self.axis = mesh, axis
+        n = mesh.size(axis)
+        self.zero_axes = {k: _shardable_axis(self.masters[k].shape, n)
+                          for k in self.names}
+        self.adamw = self._adamw([zero_part(self.masters[k],
+                                            self.zero_axes[k], mesh, axis)
+                                  for k in self.names])
+        self.load_full_state_dict(full)
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """The norm of the whole gradient (name -> gradient, None for
+        none): with tensor-split masters their squares are summed over
+        'tensor', each element counted once."""
+        named = [(n, g) for n, g in grads.items() if g is not None]
+        if not self.tp_plan:
+            return global_norm(g for _, g in named)
+        zero = torch.zeros((), device=named[0][1].device)
+        sq = lambda split: sum(
+            (torch.linalg.vector_norm(g.float()).square() for n, g in named
+             if (n in self.tp_plan) == split), zero)
+        return torch.sqrt(sq(False) + all_reduce(sq(True), self.tp_mesh,
+                                                 AXIS_TENSOR))
+
     def update(self, grads: dict[str, torch.Tensor],
                count: int) -> torch.Tensor:
         """One step of the masters in place; returns the global norm of
         `grads` before clipping."""
         gs = [grads[n] for n in self.names]
-        norm = global_norm(gs)
+        norm = self.global_norm(grads)
         max_norm = self.cfg.max_grad_norm
         factor = torch.where(norm < max_norm, torch.ones_like(norm),
                              max_norm / norm)
-        for p, g in zip(self.adamw.param_groups[0]['params'], gs):
-            p.grad = g.float() * factor
+        for n, p, g in zip(self.names, self.adamw.param_groups[0]['params'],
+                           gs):
+            p.grad = zero_part(g.float(), self.zero_axes[n], self.mesh,
+                               self.axis) * factor
         self.adamw.param_groups[0]['lr'] = self.lr(count)
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
+        for n, p in zip(self.names, self.adamw.param_groups[0]['params']):
+            if self.zero_axes[n] is not None:
+                self.masters[n].copy_(zero_gather(p.contiguous(),
+                                                  self.zero_axes[n],
+                                                  self.mesh, self.axis))
         return norm
+
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A master-shaped tensor of this rank made whole over 'tensor'."""
+        return unshard(name, t, self.tp_plan, self.tp_mesh) \
+            if self.tp_plan else t
+
+    def full_state_dict(self) -> dict:
+        """The AdamW state as one process holding every master whole would
+        have it: the moments gathered over 'data' (ZeRO) and 'tensor'."""
+        sd = self.adamw.state_dict()
+        state = {}
+        for i, st in sd['state'].items():
+            n = self.names[i]
+            state[i] = {k: v if k == 'step' else self.full(
+                n, zero_gather(v.contiguous(), self.zero_axes[n],
+                               self.mesh, self.axis))
+                for k, v in st.items()}
+        return {'state': state, 'param_groups': sd['param_groups']}
+
+    def load_full_state_dict(self, sd: dict) -> None:
+        """The inverse of full_state_dict: this rank's parts loaded."""
+        state = {}
+        for i, st in sd['state'].items():
+            n = self.names[i]
+            state[i] = {k: v if k == 'step' else zero_part(
+                shard(n, v, self.tp_plan, self.tp_mesh)
+                if self.tp_plan else v,
+                self.zero_axes[n], self.mesh, self.axis).clone()
+                for k, v in st.items()}
+        self.adamw.load_state_dict({'state': state,
+                                    'param_groups': sd['param_groups']})
 
 
 def make_optimizer(cfg: TrainConfig,
@@ -157,6 +250,10 @@ def make_train_state(cfg: TrainConfig, model: nn.Module,
             named[n].data = named[n].data.to(compute)
     stop_frozen_grads(model, mask)
     tx = make_optimizer(cfg, masters)
+    # the masters of parameters split by parallel.shard_params
+    tx.tp_plan = {n: v for n, v in getattr(model, 'tp_plan', {}).items()
+                  if n in masters}
+    tx.tp_mesh = getattr(model, 'tp_mesh', None)
     ema = init_ema(masters) if cfg.ema_decay > 0 else None
     return TrainState(0, masters, tx, ema), tx
 
@@ -182,18 +279,36 @@ def apply_update(cfg, state: TrainState, tx: Optimizer,
                       ema), metrics
 
 
+def data_parallel(mesh: Optional[Mesh]) -> bool:
+    """The step runs the data-parallel path: the mesh has a 'data' group
+    (of one rank or more)."""
+    return mesh is not None and mesh.group(AXIS_DATA) is not None
+
+
+def mean_grads_over_data(live: dict, mesh: Optional[Mesh]) -> None:
+    """Each gradient becomes its mean over the 'data' ranks."""
+    if data_parallel(mesh):
+        for p in live.values():
+            if p.grad is not None:
+                all_reduce(p.grad, mesh, AXIS_DATA).div_(mesh.size(AXIS_DATA))
+
+
 def make_train_step(cfg: TrainConfig, model: nn.Module,
                     tables: DiffusionTables, tx: Optimizer,
                     vae_decode: Optional[Callable[[torch.Tensor],
-                                                  torch.Tensor]] = None):
+                                                  torch.Tensor]] = None,
+                    mesh: Optional[Mesh] = None,
+                    deterministic: bool = True):
     """Build the train step over `model` (the compute copy that
     make_train_state prepared; called as model(x, t, y, hint)).
 
     batch: dict with gt_latent [B, F, h, w, 4], lq_latent [B, F, h, w, 4],
     y [B, L, C], optional gt_pixels [B, F, H, W, 3] (needed for the
-    frequency loss). The timesteps and the noise are drawn from
-    `generator`, unless given as `t` [B] and `noise` (tests replay the JAX
-    draws through them).
+    frequency loss): this rank's rows of the global batch under a mesh
+    with a 'data' group. The timesteps and the noise are drawn from `generator`,
+    unless given as `t` [B] and `noise` (tests replay the JAX draws
+    through them). With deterministic=False the UNet's dropout is active,
+    its masks drawn from `generator` too (or given as `dropout_masks`).
 
       train_step(state, batch, generator, t=, noise=) -> (state, metrics)
       train_step.loss_and_grads(batch, generator, t=, noise=) -> metrics;
@@ -201,21 +316,34 @@ def make_train_step(cfg: TrainConfig, model: nn.Module,
       train_step.preview_x0(batch, generator, t_fixed=499) -> pixels
     """
     live = {n: p for n, p in model.named_parameters() if n in tx.names}
+    dp = data_parallel(mesh)
+    if dp and cfg.freq_grad:
+        raise ValueError('freq_grad under data parallelism: the frequency '
+                         'term is computed on the gathered batch, without '
+                         'gradient')
+    shard_of = (mesh.index(AXIS_DATA), mesh.size(AXIS_DATA)) if dp \
+        else (0, 1)
 
     def loss_and_grads(batch, generator: Optional[torch.Generator] = None,
                        *, t: Optional[torch.Tensor] = None,
-                       noise: Optional[torch.Tensor] = None):
+                       noise: Optional[torch.Tensor] = None,
+                       dropout_masks: Optional[DropoutMasks] = None):
         gt = batch['gt_latent'].float()
         if t is None:
-            t = torch.randint(0, cfg.num_timesteps, (gt.shape[0],),
-                              generator=generator, device=gt.device)
+            t = draw_rows(lambda s: torch.randint(
+                0, cfg.num_timesteps, s, generator=generator,
+                device=gt.device), gt.shape[:1], mesh)
         if noise is None:
-            noise = torch.randn(gt.shape, generator=generator,
-                                device=gt.device)
+            noise = draw_rows(lambda s: torch.randn(
+                s, generator=generator, device=gt.device), gt.shape, mesh)
         for p in live.values():
             p.grad = None
+        kw = {}
+        if not deterministic:
+            kw = dict(deterministic=False, dropout_masks=dropout_masks
+                      or DropoutMasks(generator, shard=shard_of))
         noised = diffuse(tables, gt, t, noise)
-        v_pred = model(noised, t, batch['y'], batch['lq_latent'])
+        v_pred = model(noised, t, batch['y'], batch['lq_latent'], **kw)
         v_target = get_velocity(tables, gt, noised, t)
         pred_pixels = gt_pixels = None
         if cfg.freq_loss and vae_decode is not None and 'gt_pixels' in batch:
@@ -224,19 +352,33 @@ def make_train_step(cfg: TrainConfig, model: nn.Module,
                 pred_pixels = vae_decode(pred_x0 if cfg.freq_grad
                                          else pred_x0.detach())
             gt_pixels = batch['gt_pixels']
-        loss, metrics = star_sr_loss(v_pred, v_target, t, pred_pixels,
-                                     gt_pixels, freq_grad=cfg.freq_grad)
-        loss.backward()
+        if dp:
+            # the gradient of this rank's mean, averaged over the ranks, is
+            # that of the global mean; the metrics are the global batch's
+            loss, _ = star_sr_loss(v_pred, v_target, t)
+            loss.backward()
+            g = lambda x: None if x is None else \
+                gather_data_rows(x.detach(), mesh)
+            with torch.no_grad():
+                _, metrics = star_sr_loss(g(v_pred), g(v_target), g(t),
+                                          g(pred_pixels), g(gt_pixels))
+        else:
+            loss, metrics = star_sr_loss(v_pred, v_target, t, pred_pixels,
+                                         gt_pixels, freq_grad=cfg.freq_grad)
+            loss.backward()
+        mean_grads_over_data(live, mesh)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics['grad_norm'] = global_norm(
-            p.grad for p in live.values() if p.grad is not None)
+        metrics['grad_norm'] = tx.global_norm(
+            {n: p.grad for n, p in live.items()})
         return metrics
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None, *,
                    t: Optional[torch.Tensor] = None,
-                   noise: Optional[torch.Tensor] = None):
-        metrics = loss_and_grads(batch, generator, t=t, noise=noise)
+                   noise: Optional[torch.Tensor] = None,
+                   dropout_masks: Optional[DropoutMasks] = None):
+        metrics = loss_and_grads(batch, generator, t=t, noise=noise,
+                                 dropout_masks=dropout_masks)
         return apply_update(cfg, state, tx, live, metrics)
 
     @torch.no_grad()
@@ -247,7 +389,9 @@ def make_train_step(cfg: TrainConfig, model: nn.Module,
         gt = batch['gt_latent'].float()
         t = torch.full((gt.shape[0],), t_fixed, dtype=torch.long,
                        device=gt.device)
-        noise = torch.randn(gt.shape, generator=generator, device=gt.device)
+        noise = draw_rows(lambda s: torch.randn(s, generator=generator,
+                                                device=gt.device),
+                          gt.shape, mesh)
         noised = diffuse(tables, gt, t, noise)
         v = model(noised, t, batch['y'], batch['lq_latent'])
         x0 = get_x0(tables, v.float(), noised, t)

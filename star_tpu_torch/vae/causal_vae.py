@@ -1,5 +1,4 @@
-"""CogVideoX causal 3D VAE (counterpart of star_tpu/vae/causal_vae.py,
-without its context-parallel functions).
+"""CogVideoX causal 3D VAE (counterpart of star_tpu/vae/causal_vae.py).
 
 Defaults are the published config (cogvideox_5b_infer_sr.yaml): ch 128,
 mult (1, 2, 2, 4), 3 res blocks, z 16, scale factor 0.7. Channels-last
@@ -17,6 +16,14 @@ video [B, T, H, W, C]. As in the JAX package:
     'nearest'), by explicit indices.
 
 The convs are F.conv3d / F.conv2d: the JAX package leaves them to XLA.
+
+Context parallel (`cp_encode`, `cp_decode`): the clip's time axis split
+over a context group in the dead-slot layout
+(parallel/context_parallel.py); every causal conv takes its halo from the
+previous rank, every GroupNorm (and SpatialNorm3D's) gathers the whole
+clip's statistics, and the temporal down/upsamplers and zq's resize work
+slot-wise. The modules take the mode as `cp` (a CPMode); a CP pass runs
+the full clip and takes no window cache.
 """
 
 from __future__ import annotations
@@ -31,6 +38,14 @@ from torch import nn
 
 from ..models.layers import Conv2d, GroupNorm
 from ..models.unet.blocks import silu32
+from ..parallel.context_parallel import (cp_gather_slots, cp_pad_to_slots,
+                                         cp_rank_slots, cp_slot_group_norm,
+                                         rank_and_size,
+                                         cp_slot_halo_front,
+                                         cp_slot_pool_time,
+                                         cp_slot_repeat_zq,
+                                         cp_slot_upsample_time,
+                                         cp_unpad_from_slots)
 
 COGVIDEO_VAE_SCALING = 0.7
 
@@ -45,6 +60,22 @@ class ChunkCache:
     new: dict = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass
+class CPMode:
+    """A context-parallel pass over `group` (None: one rank) in the
+    dead-slot layout."""
+    group: object = None
+
+
+def norm_cp(norm: GroupNorm, x: torch.Tensor,
+            cp: Optional[CPMode]) -> torch.Tensor:
+    """The GroupNorm of x, over the whole clip's real slots under CP."""
+    if cp is None:
+        return norm(x)
+    return cp_slot_group_norm(x, norm.weight, norm.bias, norm.num_groups,
+                              norm.eps, cp.group)
+
+
 class CausalConv3d(nn.Conv3d):
     """3D conv with causal time padding on [B, T, H, W, C] (weight OIDHW)."""
 
@@ -55,10 +86,13 @@ class CausalConv3d(nn.Conv3d):
                          padding=(0, kh // 2, kw // 2))
         self.cache_key = ''   # the module's name in the VAE (CogVideoVAE)
 
-    def forward(self, x: torch.Tensor,
-                cache: Optional[ChunkCache] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache: Optional[ChunkCache] = None,
+                cp: Optional[CPMode] = None) -> torch.Tensor:
         kt = self.kernel_size[0]
-        if kt > 1:
+        if kt > 1 and cp is not None:
+            assert cache is None, 'a context-parallel pass takes no cache'
+            x = torch.cat([cp_slot_halo_front(x, kt, cp.group), x], dim=1)
+        elif kt > 1:
             if cache is not None and not cache.first:
                 front = cache.old[self.cache_key]
             else:
@@ -109,10 +143,16 @@ class SpatialNorm3D(nn.Module):
         self.conv_y = CausalConv3d(z_channels, channels, (1, 1, 1))
         self.conv_b = CausalConv3d(z_channels, channels, (1, 1, 1))
 
-    def forward(self, f: torch.Tensor, zq: torch.Tensor) -> torch.Tensor:
+    def forward(self, f: torch.Tensor, zq: torch.Tensor,
+                cp: Optional[CPMode] = None) -> torch.Tensor:
         _, t, hh, ww, _ = f.shape
-        zq = interp_nearest_video(zq.to(f.dtype), t, hh, ww)
-        return self.norm(f) * self.conv_y(zq) + self.conv_b(zq)
+        if cp is not None:
+            r = (t - 1) // (zq.shape[1] - 1)
+            zq = resize_nearest(cp_slot_repeat_zq(zq.to(f.dtype), r,
+                                                  cp.group), (t, hh, ww))
+        else:
+            zq = interp_nearest_video(zq.to(f.dtype), t, hh, ww)
+        return norm_cp(self.norm, f, cp) * self.conv_y(zq) + self.conv_b(zq)
 
 
 class ResnetBlock3D(nn.Module):
@@ -131,14 +171,15 @@ class ResnetBlock3D(nn.Module):
                                           (1, 1, 1))
                              if in_channels != out_channels else None)
 
-    def _norm(self, norm, x, zq):
-        return norm(x) if zq is None else norm(x, zq)
+    def _norm(self, norm, x, zq, cp):
+        return norm_cp(norm, x, cp) if zq is None else norm(x, zq, cp)
 
-    def forward(self, x, zq=None, cache: Optional[ChunkCache] = None):
-        h = silu32(self._norm(self.norm1, x, zq))
-        h = self.conv1(h, cache)
-        h = silu32(self._norm(self.norm2, h, zq))
-        h = self.conv2(h, cache)
+    def forward(self, x, zq=None, cache: Optional[ChunkCache] = None,
+                cp: Optional[CPMode] = None):
+        h = silu32(self._norm(self.norm1, x, zq, cp))
+        h = self.conv1(h, cache, cp)
+        h = silu32(self._norm(self.norm2, h, zq, cp))
+        h = self.conv2(h, cache, cp)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -154,9 +195,12 @@ class DownSample3D(nn.Module):
         self.compress_time = compress_time
         self.conv = Conv2d(channels, channels, 3, stride=2)
 
-    def forward(self, x):
+    def forward(self, x, cp: Optional[CPMode] = None):
         b, t, hh, ww, c = x.shape
-        if self.compress_time and t > 1:
+        if self.compress_time and cp is not None:
+            x = cp_slot_pool_time(x, cp.group)
+            t = x.shape[1]
+        elif self.compress_time and t > 1:
             if t % 2 == 1:
                 rest = x[:, 1:].reshape(b, (t - 1) // 2, 2, hh, ww, c) \
                     .mean(dim=2)
@@ -177,9 +221,12 @@ class UpSample3D(nn.Module):
         self.compress_time = compress_time
         self.conv = Conv2d(channels, channels, 3, padding=1)
 
-    def forward(self, x):
+    def forward(self, x, cp: Optional[CPMode] = None):
         b, t, hh, ww, c = x.shape
-        if self.compress_time and t > 1 and t % 2 == 1:
+        if self.compress_time and cp is not None:
+            x = resize_nearest(cp_slot_upsample_time(x, cp.group),
+                               (2 * (t - 1) + 1, 2 * hh, 2 * ww))
+        elif self.compress_time and t > 1 and t % 2 == 1:
             x = torch.cat([resize_nearest(x[:, :1], (1, 2 * hh, 2 * ww)),
                            resize_nearest(x[:, 1:],
                                           (2 * (t - 1), 2 * hh, 2 * ww))],
@@ -215,15 +262,15 @@ class CausalEncoder3D(nn.Module):
         self.norm_out = GroupNorm(chs[-1], 32, eps=1e-6)
         self.conv_out = CausalConv3d(chs[-1], 2 * z_channels)  # mean, logvar
 
-    def forward(self, x):
-        h = self.conv_in(x.to(self.conv_in.weight.dtype))
+    def forward(self, x, cp: Optional[CPMode] = None):
+        h = self.conv_in(x.to(self.conv_in.weight.dtype), cp=cp)
         for i in range(self.n_lv):
             for j in range(self.num_res_blocks):
-                h = getattr(self, f'down_{i}_block_{j}')(h)
+                h = getattr(self, f'down_{i}_block_{j}')(h, cp=cp)
             if i != self.n_lv - 1:
-                h = getattr(self, f'down_{i}_downsample')(h)
-        h = self.mid_block_2(self.mid_block_1(h))
-        return self.conv_out(silu32(self.norm_out(h)))
+                h = getattr(self, f'down_{i}_downsample')(h, cp)
+        h = self.mid_block_2(self.mid_block_1(h, cp=cp), cp=cp)
+        return self.conv_out(silu32(norm_cp(self.norm_out, h, cp)), cp=cp)
 
 
 class CausalDecoder3D(nn.Module):
@@ -249,18 +296,19 @@ class CausalDecoder3D(nn.Module):
         self.norm_out = SpatialNorm3D(cin, zc)
         self.conv_out = CausalConv3d(cin, 3)
 
-    def forward(self, z, cache: Optional[ChunkCache] = None):
+    def forward(self, z, cache: Optional[ChunkCache] = None,
+                cp: Optional[CPMode] = None):
         zq = z
-        h = self.conv_in(z.to(self.conv_in.weight.dtype), cache)
-        h = self.mid_block_1(h, zq, cache)
-        h = self.mid_block_2(h, zq, cache)
+        h = self.conv_in(z.to(self.conv_in.weight.dtype), cache, cp)
+        h = self.mid_block_1(h, zq, cache, cp)
+        h = self.mid_block_2(h, zq, cache, cp)
         for i in reversed(range(self.n_lv)):
             for j in range(self.num_res_blocks + 1):
-                h = getattr(self, f'up_{i}_block_{j}')(h, zq, cache)
+                h = getattr(self, f'up_{i}_block_{j}')(h, zq, cache, cp)
             if i != 0:
-                h = getattr(self, f'up_{i}_upsample')(h)
-        h = silu32(self.norm_out(h, zq))
-        return self.conv_out(h, cache)
+                h = getattr(self, f'up_{i}_upsample')(h, cp)
+        h = silu32(self.norm_out(h, zq, cp))
+        return self.conv_out(h, cache, cp)
 
 
 class CogVideoVAE(nn.Module):
@@ -285,12 +333,14 @@ class CogVideoVAE(nn.Module):
                eps: torch.Tensor | None = None) -> torch.Tensor:
         """[B, T, H, W, 3] -> scaled latents [B, (T-1)/4+1, H/8, W/8, z],
         a sample of the posterior: eps is drawn from `generator` unless
-        given."""
+        given (a tensor, or a function of the mean's shape)."""
         mean, logvar = self.encoder(video).chunk(2, dim=-1)
         std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0).float())
         if eps is None:
             eps = torch.randn(mean.shape, generator=generator,
                               device=mean.device)
+        elif callable(eps):        # eps(shape): data-parallel draws
+            eps = eps(mean.shape)
         mean = mean + std.to(mean.dtype) * eps.to(mean.device, mean.dtype)
         return mean * COGVIDEO_VAE_SCALING
 
@@ -306,3 +356,34 @@ class CogVideoVAE(nn.Module):
         cc = ChunkCache(old=cache, first=first)
         video = self.decoder(latents / COGVIDEO_VAE_SCALING, cc)
         return video, cc.new
+
+
+# ---------------------------------------------------------------------------
+# Context-parallel execution: every rank of the context group passes the
+# whole clip, runs its slots of the dead-slot layout through the encoder or
+# the decoder, and gets the whole output back (the JAX functions' global
+# view over one shard_map).
+
+
+def _cp_run(module, x: torch.Tensor, group) -> torch.Tensor:
+    n = rank_and_size(group)[1]
+    local = cp_rank_slots(cp_pad_to_slots(x, n), group)
+    out = module(local, cp=CPMode(group))
+    return cp_unpad_from_slots(cp_gather_slots(out, group), n)
+
+
+def cp_encode(vae: CogVideoVAE, video: torch.Tensor,
+              group) -> torch.Tensor:
+    """The time-split encoder: video [B, 1+P*k, H, W, 3] -> moments
+    [B, 1+P*k', H/8, W/8, 2z], equal to the one-rank encoder (whose
+    GroupNorms also take the whole clip's statistics). `group`: the
+    context process group, a Mesh, or None for one rank."""
+    return _cp_run(vae.encoder, video, group)
+
+
+def cp_decode(vae: CogVideoVAE, z: torch.Tensor, group) -> torch.Tensor:
+    """The time-split decoder: z [B, 1+P*k, h, w, zc] (unscaled, as the
+    JAX cp_decode takes it) -> video [B, 1+P*4k, 8h, 8w, 3], equal to the
+    one-rank full-clip decode (its norms gather the whole clip; the
+    reference's CP decoder uses per-rank statistics)."""
+    return _cp_run(vae.decoder, z, group)

@@ -307,12 +307,15 @@ class SVDTemporalVAE(nn.Module):
     def encode(self, video, generator: torch.Generator | None = None,
                eps: torch.Tensor | None = None):
         """-> scaled latents [B, F, h, w, 4], a sample of the posterior:
-        eps is drawn from `generator` unless given."""
+        eps is drawn from `generator` unless given (a tensor, or a function
+        of the mean's shape)."""
         mean, logvar = self.encode_moments(video).chunk(2, dim=-1)
         std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0).float())
         if eps is None:
             eps = torch.randn(mean.shape, generator=generator,
                               device=mean.device)
+        elif callable(eps):        # eps(shape): data-parallel draws
+            eps = eps(mean.shape)
         mean = mean + std.to(mean.dtype) * eps.to(mean.device, mean.dtype)
         return mean * SVD_VAE_SCALING
 

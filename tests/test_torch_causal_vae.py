@@ -29,6 +29,14 @@ GOLDEN = os.path.join(os.path.dirname(__file__), '..', 'goldens',
                       'causal_vae.npz')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def vae():
     from star_tpu.vae import causal_vae as jcv

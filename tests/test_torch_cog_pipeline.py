@@ -42,6 +42,14 @@ from test_torch_harness import port, random_params, randn, rng
 GOLDENS = os.path.join(os.path.dirname(__file__), '..', 'goldens')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _golden(name):
     path = os.path.join(GOLDENS, name)
     if not os.path.exists(path):

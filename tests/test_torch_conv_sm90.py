@@ -39,6 +39,14 @@ K5_SHAPES = [(2, 8, 14400, 320, 320), (2, 8, 3600, 640, 640),
              (1, 2, 921600, 128, 128), (2, 3, 5000, 512, 512)]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('bsz,f,n,c,cout', K5_SHAPES)
 def test_k5_plan_at_main_path_shapes(bsz, f, n, c, cout):
     plan = ftc.tconv3_launch_plan(bsz, f, n, c, cout)

@@ -21,6 +21,14 @@ from star_tpu_torch.data.io import save_video
 from star_tpu_torch.utils import metrics
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def triplet_root(tmp_path_factory):
     root = tmp_path_factory.mktemp('paired')

@@ -31,6 +31,14 @@ GOLDEN = os.path.join(os.path.dirname(__file__), '..', 'goldens',
                       'dit_small.npz')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('variant', ['liem', 'stock', 'lora'])
 def test_dit_matches_star_tpu(variant):
     from star_tpu.models.dit.dit import CogVideoDiT as JDiT

@@ -23,6 +23,14 @@ import torch
 from star_tpu_torch.ops import _build, flash_attention as fa
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bwd_workspace(bh, sq):
     tiles = math.ceil(sq / 64)
     return 4 * (bh * tiles * 64 * 66 + bh * tiles)

@@ -29,6 +29,14 @@ EDGE_CASES = [(2, 1000, 320, 777, False), (2, 1000, 320, 768, False),
               (1, 9680, 320, 9676, True)]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_plan_at_the_dit_shape():
     """q/k/v [2, 9680, 3072], 48 heads, kv_valid 9676: maps of
     {3072, rows, 2} with 6144-byte rows, K/V ending at the live keys, boxes

@@ -36,6 +36,14 @@ ROWS = (2, 32)      # 64 rows: both Pallas kernels take a block, not the
 #                     jnp fallback
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _load(name):
     path = os.path.join(ROOT, 'tools', 'negative_results', f'{name}.py')
     spec = importlib.util.spec_from_file_location(f'negative_results_{name}',

@@ -18,6 +18,14 @@ from test_torch_harness import t
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), '..', 'goldens')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _golden(name):
     path = os.path.join(GOLDEN_DIR, name)
     if not os.path.exists(path):

@@ -15,6 +15,9 @@
     plain version only inside the backward), and the kernels with no
     backward (K2 d=512, K6, K7, K8) raise instead of returning a result
     cut off from autograd;
+  * the collectives of parallel/ refuse a tensor their backend does not
+    take (NCCL takes CUDA tensors, gloo CPU ones) and let a failed
+    collective raise: no fallback to another backend or to the host;
   * tests that need the card run there and skip here.
 """
 
@@ -30,6 +33,14 @@ ROOT = os.path.join(os.path.dirname(__file__), '..')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'star_tpu', 'tools')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_sources():
     pkg = os.path.join(ROOT, 'star_tpu_torch')
     for dirpath, _, files in os.walk(pkg):
@@ -41,7 +52,13 @@ def _port_sources():
 
 def test_port_imports_nothing_of_jax_or_star_tpu():
     offenders = []
-    for path in _port_sources():
+    sources = list(_port_sources())
+    parallel = {os.path.basename(p) for p in sources
+                if os.sep + 'parallel' + os.sep in p}
+    assert parallel >= {'__init__.py', 'mesh.py', 'sharding.py', 'zero.py',
+                        'ulysses.py', 'context_parallel.py',
+                        'distributed.py'}, parallel
+    for path in sources:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -173,6 +190,37 @@ def test_training_entry_points_need_a_card_unless_told_cpu(monkeypatch,
     with pytest.raises(FileNotFoundError, match='rows.csv'):
         make_paired_data.main(['--csv', csv, '--save_dir', str(tmp_path),
                                '--device', 'cpu'])
+
+
+def test_collectives_refuse_what_their_backend_does_not_take(monkeypatch):
+    """In a one-process gloo world: a tensor on another device than the
+    CPU (a meta tensor stands in for a CUDA one here) handed to a gloo
+    group raises, as a CPU tensor handed to an NCCL group does; a
+    collective on a group that is gone raises out of the port's code."""
+    import socket
+
+    import torch.distributed as dist
+    from star_tpu_torch.parallel import mesh as pmesh
+    from star_tpu_torch.parallel.context_parallel import ring_from_previous
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                            world_size=1, rank=0)
+    try:
+        g = dist.new_group([0])
+        with pytest.raises(ValueError, match='meta tensor handed to a gloo'):
+            pmesh.collective(torch.zeros(2, device='meta'), g)
+        pmesh.collective(torch.zeros(2), g)
+        monkeypatch.setattr(pmesh.dist, 'get_backend', lambda group: 'nccl')
+        with pytest.raises(ValueError, match='cpu tensor handed to a nccl'):
+            pmesh.collective(torch.zeros(2), g)
+        monkeypatch.undo()
+        dist.destroy_process_group(g)
+        with pytest.raises(Exception):
+            ring_from_previous(torch.zeros(2, 1), g)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_training_modules_import_no_codec_or_html_parser():

@@ -26,6 +26,14 @@ from star_tpu_torch.models.layers import Conv2d, NormParams
 RTOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rng(seed: int = 0) -> np.random.RandomState:
     return np.random.RandomState(seed)
 

@@ -19,6 +19,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from star_tpu_torch.ops import (flash_attention as fa,
                                 fused_temporal_conv as ftc,
@@ -29,6 +30,14 @@ jfa = importlib.import_module('star_tpu.ops.flash_attention')
 jattn = importlib.import_module('star_tpu.ops.attention')
 jta = importlib.import_module('star_tpu.ops.temporal_attention')
 jftc = importlib.import_module('star_tpu.ops.fused_temporal_conv')
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize('b,s,c,heads,kv_valid,prescaled', [

@@ -26,6 +26,14 @@ jconv = importlib.import_module('star_tpu.ops.conv3x3')
 jup = importlib.import_module('star_tpu.ops.upsample_conv')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_norms():
     r = rng(40)
     x = randn(r, 2, 3, 5, 64)

@@ -37,6 +37,14 @@ CFG = PipelineConfig(
     upscale=4, max_chunk_len=4, pad_grid=(80, 64))
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class SmallVocabTok(HashTokenizer):
     def __call__(self, texts, context_length=77):
         return np.clip(super().__call__(texts, context_length) % 1000, 0,

@@ -22,6 +22,14 @@ B, S, H, D = 2, 84, 4, 64     # S pads to the Pallas kernel's 96-row block
 TEXT, TAIL = 7, 3             # identity rows at the front and the tail
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def case(seed=0, dtype=np.float32):
     r = rng(seed)
     x = (randn(r, B, S, H * D) * 2 + 0.5).astype(dtype)

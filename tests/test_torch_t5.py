@@ -28,6 +28,14 @@ GOLDEN = os.path.join(os.path.dirname(__file__), '..', 'goldens',
                       't5_small.npz')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def t5():
     from star_tpu.models.t5.encoder import T5Encoder as JT5

@@ -22,6 +22,14 @@ import torch
 from star_tpu_torch.ops import fused_temporal_conv as ftc
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chain_inputs(dtype=torch.bfloat16, seed=11):
     g = torch.Generator().manual_seed(seed)
     b, f, n, c = 2, 4, 24, 64

@@ -39,6 +39,14 @@ KW = dict(dim=32, dim_mult=(1,), num_res_blocks=1, attn_scales=(),
 B, F, H, W = 1, 2, 10, 8
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def reference():
     """star_tpu's train step on random bf16-representable weights with a

@@ -13,8 +13,12 @@ monkeypatched small, as tests/test_torch_cli.py does for serving):
   * a run resumed from its step-2 checkpoint equals the run continued to
     step 3, bit for bit (fp32); max_to_keep and the save interval follow
     orbax's default policy;
-  * the refusals: DP/TP flags and --coordinator, a DiT file with its LoRA
-    merged, --device cuda without a card;
+  * --data_parallel 2 on two gloo processes (torchrun's environment)
+    equal to one process at the global batch: the metrics rows and the
+    step-2 checkpoint; --coordinator taken by one process;
+  * the refusals: a process count that is not data x tensor (naming
+    torchrun), a DiT file with its LoRA merged, --device cuda without a
+    card;
   * collect_samples and stack_batch on the setup of
     tests/test_train_cli.py:139-154, against star_tpu's.
 """
@@ -32,12 +36,10 @@ import torch
 import chip_smoke
 from star_tpu_torch.cli import make_paired_data, train_cog, train_sr
 from star_tpu_torch.convert.convert import save_params
-from star_tpu_torch.models.dit.dit import CogVideoDiT
-from star_tpu_torch.models.t5.encoder import T5Encoder
 from star_tpu_torch.train.checkpoint import CheckpointManager
-from star_tpu_torch.vae.causal_vae import CogVideoVAE
 from test_torch_cli import clip_frames, tiny_star_models, write_mp4
 from test_torch_degradation import _draw
+from torch_parallel_worker import cog_towers
 
 HW = (80, 64)               # the tiny UNet's latent grid 10x8
 PAIR = ['--num_frames', '5', '--frame_interval', '1', '--height',
@@ -223,10 +225,11 @@ def test_train_sr_trains_from_the_triplets_and_resumes_exactly(tiny_sr,
 
 def test_train_sr_refuses_parallel_flags_and_a_missing_card(tmp_path,
                                                             monkeypatch):
+    """--data_parallel / --tensor_parallel above 1 in one process raise,
+    naming torchrun, before any model is built."""
     monkeypatch.setattr(train_sr, 'init_random_models', None)   # not reached
-    for flags in (['--data_parallel', '2'], ['--tensor_parallel', '2'],
-                  ['--coordinator', 'localhost:1234']):
-        with pytest.raises(ValueError, match='item 5'):
+    for flags in (['--data_parallel', '2'], ['--tensor_parallel', '2']):
+        with pytest.raises(ValueError, match='torchrun --nproc_per_node 2'):
             sr_main(str(tmp_path), tmp_path / 'o', *flags)
     with pytest.raises(RuntimeError, match='CUDA'):
         train_sr.main(['--data_root', str(tmp_path), '--output_dir',
@@ -237,19 +240,6 @@ def test_train_sr_refuses_parallel_flags_and_a_missing_card(tmp_path,
 
 
 # ------------------------------------------------------------- train_cog
-
-
-def cog_towers(lora_rank):
-    # the hash tokenizer gives 226 ids below T5's 32128
-    return {'dit': lambda: CogVideoDiT(
-                hidden_size=64, num_layers=2, num_heads=1, patch_size=2,
-                latent_channels=4, text_hidden_size=32, text_length=226,
-                time_embed_dim=16, lora_rank=lora_rank),
-            'causal_vae': lambda: CogVideoVAE(ch=32, ch_mult=(1, 1, 1, 1),
-                                              num_res_blocks=1,
-                                              z_channels=4),
-            't5': lambda: T5Encoder(d_model=32, d_ff=48, num_heads=2,
-                                    num_layers=1)}
 
 
 def cog_triplets(tmp_path):
@@ -319,9 +309,108 @@ def test_train_cog_loads_lora_files_and_refuses_merged_ones(monkeypatch,
     with pytest.raises(ValueError, match=r'lora_a.*--merge-lora'):
         cog_main(root, tmp_path / 'o2', '--model_path', str(weights),
                  '--allow_random_weights')
-    for flags in (['--data_parallel', '2'], ['--tensor_parallel', '4']):
-        with pytest.raises(ValueError, match='item 5'):
+    for flags, n in ((['--data_parallel', '2'], 2),
+                     (['--tensor_parallel', '4'], 4)):
+        with pytest.raises(ValueError, match=f'torchrun --nproc_per_node {n}'):
             cog_main(root, tmp_path / 'o3', *flags)
+
+
+# ------------------------------------------------------ several processes
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _cli_process(kind, argv, rank=None, world=None, port=None):
+    """tests/torch_parallel_worker.py's CLI mode in a process of its own,
+    one torch thread, in torchrun's environment when given a rank. The
+    T5 hash tokenizer hashes words with Python's hash(), which each
+    process salts anew unless PYTHONHASHSEED is set: set, so that every
+    process gets the same ids."""
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS='1', PYTHONHASHSEED='0',
+               PYTHONPATH=os.pathsep.join(
+        [os.path.join(here, '..'), here, os.environ.get('PYTHONPATH', '')]))
+    if rank is not None:
+        env.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                   WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+    return subprocess.Popen(
+        [sys.executable, os.path.join(here, 'torch_parallel_worker.py'),
+         'cli', kind, *argv], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+
+
+@pytest.mark.parametrize('kind', ['sr', 'cog'])
+def test_train_cli_data_parallel_equals_one_process(tmp_path, kind):
+    """--data_parallel 2 --batch_size 1 on two gloo processes against one
+    process with --batch_size 2, two steps: the same metrics rows (rank 0
+    alone writes them) and the same step-2 checkpoint (masters, AdamW
+    moments gathered from the ZeRO parts, EMA, generator state). The two
+    runs differ in the order of their batch sums (one GEMM over two rows
+    against two GEMMs and an all-reduce), so the checkpoint's tensors are
+    held within 1e-5 and the metrics within 1e-5 of their size."""
+    if kind == 'sr':
+        root, _ = write_triplets(tmp_path)
+        flags = ['--data_root', root, '--allow_random_weights',
+                 '--num_frames', '4', '--learning_rate', '1e-3',
+                 '--ema_decay', '0.9']
+    else:
+        root = cog_triplets(tmp_path)
+        flags = ['--data_root', root, '--allow_random_weights',
+                 '--num_frames', '9', '--lora_rank', '4', '--freq_loss',
+                 '--ema_decay', '0.9']
+    flags += ['--device', 'cpu', '--max_train_steps', '2',
+              '--checkpointing_steps', '2']
+    port = _free_port()
+    dp, one = tmp_path / 'dp', tmp_path / 'one'
+    procs = [_cli_process(kind, flags + ['--output_dir', str(dp),
+                                         '--data_parallel', '2',
+                                         '--batch_size', '1'], r, 2, port)
+             for r in range(2)]
+    procs.append(_cli_process(kind, flags + ['--output_dir', str(one),
+                                             '--batch_size', '2']))
+    logs = [p.communicate(timeout=600)[0].decode() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0, 0], \
+        '\n'.join(logs)[-3000:]
+    got, want = rows(dp), rows(one)
+    assert [r['step'] for r in got] == [r['step'] for r in want] == [1, 2]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in set(g) - {'sec_per_step'}:
+            assert g[k] == pytest.approx(w[k], rel=1e-5, abs=1e-7), k
+    a, b = (torch.load(os.path.join(d, 'ckpt', 'step_00000002.pt'),
+                       weights_only=True) for d in (dp, one))
+    assert a['step'] == b['step'] == 2
+    assert torch.equal(a['generator'], b['generator'])
+    for part in ('params', 'ema'):
+        assert set(a[part]) == set(b[part])
+        for n, v in b[part].items():
+            assert torch.allclose(a[part][n], v, rtol=0, atol=1e-5), n
+    assert a['opt']['param_groups'] == b['opt']['param_groups']
+    for i, st in b['opt']['state'].items():
+        for k, v in st.items():
+            assert torch.allclose(a['opt']['state'][i][k], v, rtol=0,
+                                  atol=1e-5), (i, k)
+
+
+def test_train_sr_takes_a_coordinator(tiny_sr, tmp_path):
+    """--coordinator host:port starts a one-process gloo world (the
+    rendezvous of processes that torchrun did not start), trains and
+    ends the world it started."""
+    import torch.distributed as dist
+    root, _ = write_triplets(tmp_path)
+    state = sr_main(root, tmp_path / 'c', '--max_train_steps', '1',
+                    '--coordinator', f'127.0.0.1:{_free_port()}')
+    assert state.step == 1 and [r['step'] for r in rows(tmp_path / 'c')] \
+        == [1]
+    assert not dist.is_initialized()
 
 
 # ------------------------------------------------- checkpoints and batches

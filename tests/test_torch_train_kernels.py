@@ -35,6 +35,14 @@ jta = importlib.import_module('star_tpu.ops.temporal_attention')
 jftc = importlib.import_module('star_tpu.ops.fused_temporal_conv')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grads(fn, ct, *xs):
     """Port gradients of sum(fn(*xs) * ct) w.r.t. xs (leaf copies)."""
     xs = [x.detach().clone().requires_grad_() for x in xs]

@@ -21,6 +21,14 @@ from star_tpu_torch.train import (TrainConfig, cast_frozen, fourier_split,
 from test_torch_harness import assert_close, randn, rng, t
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_fourier_split_and_star_sr_loss_match_jax():
     """fp32, 1e-4 of the reference magnitude (FFT rounding): the split of
     a [4, 48, 64, 3] batch (19008 magnitudes, cutoff from the strided 10k
@@ -131,12 +139,24 @@ def test_cast_frozen_then_make_train_state_keeps_fp32_masters():
 
 
 def test_dropout_is_not_ported():
-    """deterministic=False while dropout > 0 raises, naming the roadmap."""
+    """The dropout path is ported (tests/test_torch_dropout.py holds it to
+    JAX): deterministic=False without masks raises, naming the argument;
+    with masks drawn from a generator it runs, and its output differs from
+    the deterministic one."""
+    from star_tpu_torch.models.unet.blocks import DropoutMasks
     m = _tiny_unet()
-    x = torch.zeros(1, 2, 10, 8, 4)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        m(x, torch.zeros(1, dtype=torch.long), torch.zeros(1, 7, 32), x,
-          deterministic=False)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 2, 10, 8, 4, generator=g)
+    args = (x, torch.zeros(1, dtype=torch.long), torch.randn(1, 7, 32), x)
+    with pytest.raises(ValueError, match='dropout_masks'):
+        m(*args, deterministic=False)
+    with torch.no_grad():
+        for p in m.parameters():       # non-zero zero-init layers
+            p.add_(0.01)
+        got = m(*args, deterministic=False,
+                dropout_masks=DropoutMasks(torch.Generator().manual_seed(1)))
+        want = m(*args)
+    assert bool(torch.isfinite(got).all()) and not torch.equal(got, want)
 
 
 def test_small_train_check_fails_without_the_stats_cotangent(monkeypatch):

@@ -23,6 +23,14 @@ UNET_KW = dict(dim=32, dim_mult=(1, 2), num_res_blocks=1,
                num_heads_init_temporal=2, context_dim=32)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def unet_pair():
     from star_tpu.models.unet.unet import ControlledV2VUNet as JUNet

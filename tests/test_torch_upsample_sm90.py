@@ -38,6 +38,14 @@ K7_SHAPES = [(n, h, w, c) for n in (6, 2)
                              (360, 640, 256))]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('n,h,w,c', K7_SHAPES)
 def test_k7_plan_at_main_path_shapes(n, h, w, c):
     cout = c

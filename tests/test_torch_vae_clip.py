@@ -19,6 +19,14 @@ from test_torch_harness import (assert_close, port, random_params, randn,
 VAE_CHS = (32, 32, 32, 32)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_vae():
     from star_tpu.vae import svd_vae as jsv
 

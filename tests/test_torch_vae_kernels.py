@@ -25,6 +25,7 @@ import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from star_tpu_torch.models.layers import Conv2d
 from star_tpu_torch.ops import conv3x3, upsample_conv
@@ -35,6 +36,14 @@ jup = importlib.import_module('star_tpu.ops.upsample_conv')
 
 # impl -> (output atol, rtol, statistics atol) of the JAX package's tests
 WINOGRAD_TOL = {'wino': (5e-4, 1e-4, 2e-2), 'winoh': (2e-3, 1e-3, 5e-2)}
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _conv_weights(r, c, cout):

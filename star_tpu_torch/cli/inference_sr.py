@@ -17,6 +17,7 @@ from __future__ import annotations
 import glob
 import os
 from argparse import ArgumentParser
+from contextlib import nullcontext
 
 import torch
 
@@ -27,6 +28,7 @@ from ..data.prefetch import PrefetchIterator
 from ..pipeline.build import build_pipeline, init_random_models
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
+from ..utils.profiling import annotate, gc_spans, trace
 
 
 def parse_args(argv=None):
@@ -59,6 +61,9 @@ def parse_args(argv=None):
     p.add_argument('--allow_random_weights', action='store_true')
     p.add_argument('--device', type=str, default='cuda',
                    help='cuda (the default) or cpu')
+    p.add_argument('--trace_dir', type=str, default=None,
+                   help='profile the job loop and write its Chrome trace '
+                        '(spans, operators, kernels) to DIR/trace.json')
     return p.parse_args(argv)
 
 
@@ -107,28 +112,37 @@ def run_jobs(pipe, jobs, load, save, seed: int = 666) -> list:
     def flush(pending):
         host, done, name, fps = pending
         if done is not None:
-            done.synchronize()
-        path = save(host.numpy(), name, fps)
+            with annotate('jobs.wait_output'):
+                done.synchronize()
+        with annotate('jobs.save'):
+            path = save(host.numpy(), name, fps)
         logger.info('saved %s', path)
         saved.append(path)
 
     saved, pending = [], None
     loaded = PrefetchIterator((fetch(j) for j in jobs), depth=2)
     try:
-        for source, prompt, name, frames, fps in loaded:
-            logger.info('input %s: %s frames @ %.2f fps, %sx%s', source,
-                        frames.shape[0], fps, frames.shape[1],
-                        frames.shape[2])
-            out = pipe.enhance_a_video_async(frames, prompt, seed=seed)
-            host, done = out.to('cpu', non_blocking=True), None
-            if out.is_cuda:
-                done = torch.cuda.Event()
-                done.record()
+        with gc_spans():
+            while True:
+                with annotate('jobs.wait_input'):
+                    item = next(loaded, None)
+                if item is None:
+                    break
+                source, prompt, name, frames, fps = item
+                logger.info('input %s: %s frames @ %.2f fps, %sx%s', source,
+                            frames.shape[0], fps, frames.shape[1],
+                            frames.shape[2])
+                out = pipe.enhance_a_video_async(frames, prompt, seed=seed)
+                with annotate('jobs.to_host'):
+                    host, done = out.to('cpu', non_blocking=True), None
+                    if out.is_cuda:
+                        done = torch.cuda.Event()
+                        done.record()
+                if pending is not None:
+                    flush(pending)
+                pending = (host, done, name, fps)
             if pending is not None:
                 flush(pending)
-            pending = (host, done, name, fps)
-        if pending is not None:
-            flush(pending)
     finally:
         loaded.close()
     return saved
@@ -166,9 +180,10 @@ def main(argv=None):
     pipe = build_pipeline(models, cfg, param_dtype=dtype,
                           allow_hash_tokenizer=args.allow_random_weights,
                           device=device)
-    return run_jobs(pipe, jobs, load_video,
-                    lambda frames, name, fps: save_video(
-                        frames, args.save_dir, name, fps=fps), args.seed)
+    with trace(args.trace_dir) if args.trace_dir else nullcontext():
+        return run_jobs(pipe, jobs, load_video,
+                        lambda frames, name, fps: save_video(
+                            frames, args.save_dir, name, fps=fps), args.seed)
 
 
 if __name__ == '__main__':

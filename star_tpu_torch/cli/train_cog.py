@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import os
 from argparse import ArgumentParser
+from contextlib import nullcontext
 from typing import Callable, Optional
 
 import numpy as np
@@ -52,6 +53,7 @@ from ..train.cog_trainer import (CogTrainConfig, make_cog_train_state,
                                  make_cog_train_step)
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
+from ..utils.profiling import annotate, trace
 from ..utils.seed import setup_seed
 from ..vae.causal_vae import CogVideoVAE
 from .train_sr import (compute_dtype, posterior_eps, rank_rows, row_writer,
@@ -93,6 +95,9 @@ def parse_args(argv=None):
                         'processes are not started by torchrun')
     p.add_argument('--device', type=str, default='cuda',
                    help='cuda (the default) or cpu')
+    p.add_argument('--trace_dir', type=str, default=None,
+                   help='profile the train loop and write its Chrome trace '
+                        '(spans, operators, kernels) to DIR/trace.json')
     return p.parse_args(argv)
 
 
@@ -156,13 +161,20 @@ def make_cog_trainer(models: CogModels, cfg: CogTrainConfig,
 
     @torch.no_grad()
     def make_batch(samples):
-        gt_np, lq_np, texts = stack_batch(rank_rows(samples, mesh))
-        gt = torch.from_numpy(gt_np).to(device, dtype)
-        lq = torch.from_numpy(lq_np).to(device, dtype)
-        gt_lat = vae.encode(gt, eps=posterior_eps(generator, device, mesh))
-        lq_lat = vae.encode(lq, eps=torch.zeros(gt_lat.shape, device=device))
-        tokens = torch.as_tensor(np.asarray(tokenizer(texts)), device=device)
-        batch = {'gt_latent': gt_lat, 'lq_latent': lq_lat, 'y': t5(tokens)}
+        with annotate('batch.to_device'):
+            gt_np, lq_np, texts = stack_batch(rank_rows(samples, mesh))
+            gt = torch.from_numpy(gt_np).to(device, dtype)
+            lq = torch.from_numpy(lq_np).to(device, dtype)
+        with annotate('batch.vae_encode'):
+            gt_lat = vae.encode(gt, eps=posterior_eps(generator, device,
+                                                      mesh))
+            lq_lat = vae.encode(lq, eps=torch.zeros(gt_lat.shape,
+                                                    device=device))
+        with annotate('batch.t5'):
+            tokens = torch.as_tensor(np.asarray(tokenizer(texts)),
+                                     device=device)
+            y = t5(tokens)
+        batch = {'gt_latent': gt_lat, 'lq_latent': lq_lat, 'y': y}
         if cfg.freq_loss:
             batch['gt_pixels'] = gt
         return batch
@@ -221,11 +233,12 @@ def run(args, device: torch.device, mesh: Mesh):
     global_batch = args.batch_size * args.data_parallel
     ds.skip(start_step * global_batch)
     make_it = lambda: PrefetchIterator(ds, depth=2 * global_batch)
-    return train_loop(
-        step_fn, state, make_batch, make_it, start_step=start_step,
-        max_train_steps=args.max_train_steps, global_batch=global_batch,
-        checkpoints=ckpt, write_row=row_writer(args.output_dir),
-        learning_rate=args.learning_rate, generator=generator)
+    with trace(args.trace_dir) if args.trace_dir else nullcontext():
+        return train_loop(
+            step_fn, state, make_batch, make_it, start_step=start_step,
+            max_train_steps=args.max_train_steps, global_batch=global_batch,
+            checkpoints=ckpt, write_row=row_writer(args.output_dir),
+            learning_rate=args.learning_rate, generator=generator)
 
 
 if __name__ == '__main__':

@@ -62,6 +62,7 @@ from ..train import TrainConfig, cast_frozen, make_train_state, \
 from ..train.checkpoint import CheckpointManager
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
+from ..utils.profiling import annotate, gc_spans
 from ..utils.seed import setup_seed
 
 
@@ -199,21 +200,27 @@ def train_loop(step_fn: Callable, state, make_batch: Callable,
     logger = get_logger()
     it = make_it()
     t_last = time.time()
-    for step in range(start_step, max_train_steps):
-        samples, it = collect_samples(it, make_it, global_batch)
-        batch = make_batch(samples)
-        state, metrics = step_fn(state, batch)
-        if after_step is not None:
-            after_step(step + 1, state, batch)
-        if checkpoints is not None:
-            checkpoints.save(step + 1, state, generator)
-        row = {k: float(v) for k, v in metrics.items()}
-        row.update(step=step + 1, lr=learning_rate,
-                   sec_per_step=time.time() - t_last)
-        t_last = time.time()
-        write_row(row)
-        if (step + 1) % 10 == 0:
-            logger.info('step %d loss %.4f', step + 1, row['total_loss'])
+    with gc_spans():
+        for step in range(start_step, max_train_steps):
+            with annotate('train.batch'):
+                samples, it = collect_samples(it, make_it, global_batch)
+                batch = make_batch(samples)
+            with annotate('train.step'):
+                state, metrics = step_fn(state, batch)
+            if after_step is not None:
+                with annotate('train.after_step'):
+                    after_step(step + 1, state, batch)
+            if checkpoints is not None:
+                with annotate('train.checkpoint'):
+                    checkpoints.save(step + 1, state, generator)
+            with annotate('train.row'):     # the host waits for the step
+                row = {k: float(v) for k, v in metrics.items()}
+            row.update(step=step + 1, lr=learning_rate,
+                       sec_per_step=time.time() - t_last)
+            t_last = time.time()
+            write_row(row)
+            if (step + 1) % 10 == 0:
+                logger.info('step %d loss %.4f', step + 1, row['total_loss'])
     return state
 
 

@@ -20,6 +20,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from .schedules import Schedule, sigma_to_t
 
 # model_fn(x_scaled, t_int) -> x0 prediction (same shape as x)
@@ -63,8 +64,9 @@ def sample_dpmpp_2m_sde(model_fn: ModelFn, x_init: torch.Tensor,
 
     start = 0
     if np.isinf(sigmas[0]):
-        denoised = model_fn(x_init.float(), ts[0]).float()
-        x = denoised + float(sigmas[1]) * x_init.float()
+        with annotate('sampler.step'):
+            denoised = model_fn(x_init.float(), ts[0]).float()
+            x = denoised + float(sigmas[1]) * x_init.float()
         start = 1
     else:
         x = x_init.float() * float(sigmas[0])
@@ -72,25 +74,28 @@ def sample_dpmpp_2m_sde(model_fn: ModelFn, x_init: torch.Tensor,
     old_denoised = None
     h_last = None
     for i in range(start, n - 1):
-        sig, sig_next = float(sigmas[i]), float(sigmas[i + 1])
-        denoised = model_fn(x * _c_in(sig), ts[i]).float()
-        h = math.log(sig) - math.log(sig_next)
-        eta_h = eta * h
-        phi = -math.expm1(-h - eta_h)
-        x = (sig_next / sig) * math.exp(-eta_h) * x + phi * denoised
-        if old_denoised is not None:
-            r = h_last / h
-            coef = (phi / (-h - eta_h) + 1.0 if solver_type == 'heun'
-                    else 0.5 * phi)
-            x = x + coef * (1.0 / r) * (denoised - old_denoised)
-        if eta > 0 and s_noise != 0.0:
-            x = x + _normal(x, generator, noises, i) * (
-                sig_next * math.sqrt(-math.expm1(-2.0 * eta_h)) * s_noise)
-        old_denoised, h_last = denoised, h
+        with annotate('sampler.step'):
+            sig, sig_next = float(sigmas[i]), float(sigmas[i + 1])
+            denoised = model_fn(x * _c_in(sig), ts[i]).float()
+            h = math.log(sig) - math.log(sig_next)
+            eta_h = eta * h
+            phi = -math.expm1(-h - eta_h)
+            x = (sig_next / sig) * math.exp(-eta_h) * x + phi * denoised
+            if old_denoised is not None:
+                r = h_last / h
+                coef = (phi / (-h - eta_h) + 1.0 if solver_type == 'heun'
+                        else 0.5 * phi)
+                x = x + coef * (1.0 / r) * (denoised - old_denoised)
+            if eta > 0 and s_noise != 0.0:
+                x = x + _normal(x, generator, noises, i) * (
+                    sig_next * math.sqrt(-math.expm1(-2.0 * eta_h))
+                    * s_noise)
+            old_denoised, h_last = denoised, h
 
     # terminal step: sigma_next == 0 -> x = denoised
     sig = float(sigmas[n - 1])
-    return model_fn(x * _c_in(sig), ts[n - 1]).float()
+    with annotate('sampler.step'):
+        return model_fn(x * _c_in(sig), ts[n - 1]).float()
 
 
 def sample_heun(model_fn: ModelFn, x_init: torch.Tensor, schedule: Schedule,
@@ -115,18 +120,20 @@ def sample_heun(model_fn: ModelFn, x_init: torch.Tensor, schedule: Schedule,
             eps = _normal(x, generator, noises, i) * s_noise
             x = x + eps * float(np.sqrt(sigma_hat**2 - sig**2))
         if np.isinf(sig):
-            denoised = model_fn(x_init.float(), ts[i]).float()
-            x = denoised + sig_next * (gamma + 1.0) * x_init.float()
-        else:
+            with annotate('sampler.step'):
+                denoised = model_fn(x_init.float(), ts[i]).float()
+                x = denoised + sig_next * (gamma + 1.0) * x_init.float()
+            continue
+        with annotate('sampler.step'):
             denoised = model_fn(x * _c_in(sigma_hat), ts[i]).float()
             d = (x - denoised) / sigma_hat
             dt = sig_next - sigma_hat
-            if sig_next == 0.0:
-                x = x + d * dt
-            else:
-                x_2 = x + d * dt
-                denoised_2 = model_fn(x_2 * _c_in(sig_next),
-                                      ts[i + 1]).float()
-                d_2 = (x_2 - denoised_2) / sig_next
-                x = x + (d + d_2) / 2.0 * dt
+            x_2 = x + d * dt
+        if sig_next == 0.0:
+            x = x_2
+            continue
+        with annotate('sampler.step'):      # Heun's correction
+            denoised_2 = model_fn(x_2 * _c_in(sig_next), ts[i + 1]).float()
+            d_2 = (x_2 - denoised_2) / sig_next
+            x = x + (d + d_2) / 2.0 * dt
     return x

@@ -41,6 +41,7 @@ from ...ops.qk_ln_rope import LOG2E, qk_ln_rope
 from ...parallel.mesh import AXIS_CONTEXT, Mesh, collective
 from ...parallel.sharding import copy_to_tp, reduce_from_tp
 from ...parallel.ulysses import ulysses_attention
+from ...utils.profiling import spanned
 from ..layers import Conv2d, zero_
 from ..unet.blocks import silu32, sinusoidal_embedding
 
@@ -372,6 +373,7 @@ class CogVideoDiT(nn.Module):
                                  torch.from_numpy(sin).to(device))
         return self._tables[key]
 
+    @spanned('dit.call')
     def forward(self, x: torch.Tensor, t_idx: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:
         b, t, hh, ww, cin = x.shape

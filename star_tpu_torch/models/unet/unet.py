@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ...utils.profiling import spanned
 from ..layers import Conv2d, GroupNorm, zero_
 from .blocks import (DropoutMasks, Downsample, ResBlock, SpatialTransformer,
                      TemporalTransformer, Upsample, name_dropout_sites,
@@ -245,6 +246,7 @@ class ControlledV2VUNet(nn.Module):
         self.controlnet = VideoUNetTrunk(is_controlnet=True, **kw)
         name_dropout_sites(self)
 
+    @spanned('unet.call')
     def forward(self, x, t, y, hint, cfg_pair: bool = False,
                 deterministic: bool = True,
                 dropout_masks: Optional[DropoutMasks] = None):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
 from . import _build
 
 Stats = tuple[torch.Tensor, torch.Tensor]
@@ -144,6 +145,7 @@ def _stats_buffers(want_stats, n, c, out):
             torch.zeros((n, c), dtype=torch.float32, device=out.device))
 
 
+@spanned('kernel.K6')
 def _launch(x, a, b, weight, bias, residual, want_stats):
     """Launch csrc/conv3x3_sm90.cu. The [Cout, 3, 3, C] bf16 weight layout
     it reads (K contiguous) is made here on every call."""

@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate, spanned
 from . import _build
 
 LOG2E = 1.4426950408889634
@@ -222,51 +223,56 @@ def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
     with head h at column h*d; returns the output in q's layout (and with
     `want_lse`, d=64 only, the fp32 log-sum-exp [B, heads, Sq])."""
     global PACKED_LAUNCHES, LSE_LAUNCHES, D512_LAUNCHES
-    name = {64: 'star_flash_fwd_d64', 512: 'star_flash_fwd_d512'}.get(d)
-    if name is None or (want_lse and d != 64):
-        raise ValueError(f'flash kernel takes head_dim 64 or 512 (lse: 64 '
-                         f'only), not {d}')
-    _build.refuse_grad(name, q, k, v)
-    for t in (q, k, v):
-        if not t.is_cuda or t.dtype != torch.bfloat16:
-            raise ValueError('flash kernel takes bf16 CUDA tensors, got '
-                             f'{t.dtype} on {t.device}')
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError('flash kernel takes contiguous 16-byte '
-                             'aligned q/k/v')
-    if k.shape != v.shape or k.shape[0] != q.shape[0] \
-            or k.shape[2:] != q.shape[2:]:
-        raise ValueError(f'flash kernel: q {tuple(q.shape)} k '
-                         f'{tuple(k.shape)} v {tuple(v.shape)}')
-    bsz, sq = q.shape[0], q.shape[1]
-    sk = k.shape[1]
-    row = heads * d
-    plan = (k1_launch_plan if d == 64 else d512_launch_plan)(
-        bsz, heads, sq, sk, kv_valid)
-    out = torch.empty_like(q)
-    strides = (bsz, heads, sq, sk, plan['kv_valid'],
-               sq * row, sk * row, sk * row, sq * row, row, row, row, row,
-               float(c), _build.stream_ptr(q.device))
-    fn = getattr(_build.lib(), name)
-    if d == 64:
-        lse = (torch.empty((bsz, heads, sq), dtype=torch.float32,
-                           device=q.device) if want_lse else None)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(), *strides)
-    else:
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *strides)
-    _build.check(err, name)
-    if d == 512:
-        D512_LAUNCHES += 1
-    elif want_lse:
-        LSE_LAUNCHES += 1
-        return out, lse
-    else:
-        PACKED_LAUNCHES += 1
-    return out
+    span = ('kernel.K2' if d == 512 else
+            'kernel.K2_with_l' if want_lse else 'kernel.K1')
+    with annotate(span):
+        name = {64: 'star_flash_fwd_d64', 512: 'star_flash_fwd_d512'}.get(d)
+        if name is None or (want_lse and d != 64):
+            raise ValueError(f'flash kernel takes head_dim 64 or 512 '
+                             f'(lse: 64 only), not {d}')
+        _build.refuse_grad(name, q, k, v)
+        for t in (q, k, v):
+            if not t.is_cuda or t.dtype != torch.bfloat16:
+                raise ValueError('flash kernel takes bf16 CUDA tensors, got '
+                                 f'{t.dtype} on {t.device}')
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError('flash kernel takes contiguous 16-byte '
+                                 'aligned q/k/v')
+        if k.shape != v.shape or k.shape[0] != q.shape[0] \
+                or k.shape[2:] != q.shape[2:]:
+            raise ValueError(f'flash kernel: q {tuple(q.shape)} k '
+                             f'{tuple(k.shape)} v {tuple(v.shape)}')
+        bsz, sq = q.shape[0], q.shape[1]
+        sk = k.shape[1]
+        row = heads * d
+        plan = (k1_launch_plan if d == 64 else d512_launch_plan)(
+            bsz, heads, sq, sk, kv_valid)
+        out = torch.empty_like(q)
+        strides = (bsz, heads, sq, sk, plan['kv_valid'],
+                   sq * row, sk * row, sk * row, sq * row, row, row, row,
+                   row, float(c), _build.stream_ptr(q.device))
+        fn = getattr(_build.lib(), name)
+        if d == 64:
+            lse = (torch.empty((bsz, heads, sq), dtype=torch.float32,
+                               device=q.device) if want_lse else None)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), None if lse is None else lse.data_ptr(),
+                     *strides)
+        else:
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), *strides)
+        _build.check(err, name)
+        if d == 512:
+            D512_LAUNCHES += 1
+        elif want_lse:
+            LSE_LAUNCHES += 1
+            return out, lse
+        else:
+            PACKED_LAUNCHES += 1
+        return out
 
 
+@spanned('kernel.K3')
 def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float,
                 kv_valid: int):
     """Launch csrc/flash_bwd_sm90.cu (K3: the D/lse preprocess, the main

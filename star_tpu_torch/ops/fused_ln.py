@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import spanned
 from . import _build
 
 LN_LAUNCHES = 0          # K10
@@ -122,6 +123,7 @@ def _kernel_args(name, x, scale, bias, gate_w, others=()):
     return x.numel() // c, c, sc, bi, gw, int(pbf)
 
 
+@spanned('kernel.K10')
 def _launch_ln(x, scale, bias, eps, gate_w):
     global LN_LAUNCHES
     rows, c, sc, bi, gw, pbf = _kernel_args('fused_ln', x, scale, bias,
@@ -137,6 +139,7 @@ def _launch_ln(x, scale, bias, eps, gate_w):
     return out
 
 
+@spanned('kernel.K11')
 def _launch_resid_ln(y, resid, scale, bias, eps, gate_w):
     global RESID_LN_LAUNCHES
     rows, c, sc, bi, gw, pbf = _kernel_args('fused_resid_ln', y, scale, bias,

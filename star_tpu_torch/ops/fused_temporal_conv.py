@@ -31,6 +31,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
 from . import _build
 from .conv3x3 import Stats, channel_stats, gn_coeffs
 
@@ -207,6 +208,7 @@ def tconv3_plain(x, a, b, kernel3, bias, residual, want_stats,
     return out, None
 
 
+@spanned('kernel.K5')
 def _launch(x, a, b, kernel3, bias, residual, want_stats, per_frame):
     global LAUNCHES
     bsz, f, n, c = x.shape

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate, spanned
 from . import _build
 from .fused_ln import _recompute_grads
 
@@ -53,6 +54,7 @@ def qk_ln_rope_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.reshape(b, s, c).to(x.dtype)
 
 
+@spanned('kernel.K9')
 def _launch(x, scale, bias, cos, sin, num_heads: int, eps: float,
             fold_scale: float):
     global LAUNCHES
@@ -106,7 +108,7 @@ class _QkLnRope(torch.autograd.Function):
     def backward(ctx, ct):
         global BACKWARDS
         BACKWARDS += 1
-        with torch.profiler.record_function('qk_ln_rope_backward'):
+        with annotate('qk_ln_rope_backward'):
             grads = _recompute_grads(
                 ctx, lambda x, sc, bi, cos, sin: qk_ln_rope_plain(
                     x, sc, bi, cos, sin, *ctx.args), [ct])

@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from ..utils.profiling import spanned
 from . import _build
 
 LAUNCHES = 0
@@ -36,6 +37,7 @@ def temporal_attention_plain(q, k, v, num_heads: int, scale: float):
     return out.reshape(b, f, n, hd).to(q.dtype)
 
 
+@spanned('kernel.K4')
 def _launch(q, k, v, num_heads: int, scale: float):
     global LAUNCHES
     b, f, n, hd = q.shape

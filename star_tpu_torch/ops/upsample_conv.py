@@ -32,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
 from . import _build
 from .conv3x3 import (H100_SMS, K6_BN, K6_GROUP_BYTES, K6_SMEM, K6_T,
                       K6_THREADS, _stats_buffers, channel_stats)
@@ -141,6 +142,7 @@ def interleave2x2_plain(p00, p01, p10, p11, want_stats=False):
     return (out, channel_stats(out)) if want_stats else out
 
 
+@spanned('kernel.K8')
 def _launch_interleave(p00, p01, p10, p11, want_stats):
     global INTERLEAVE_LAUNCHES
     _build.refuse_grad('star_interleave2x2', p00, p01, p10, p11)
@@ -201,6 +203,7 @@ def k7_weights(k_rs: torch.Tensor, device,
         4, 0, 1, 2, 3).reshape(cout, 16, c).contiguous()
 
 
+@spanned('kernel.K7')
 def _launch_upsample(x, k_rs, bias, want_stats):
     """Launch csrc/upsample_conv_sm90.cu with the plan's phase maps, tap
     offsets and grid. The [Cout, 16, C] bf16 weight layout it reads is made

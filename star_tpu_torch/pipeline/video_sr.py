@@ -11,6 +11,7 @@ latents stay on the device between them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Mapping, Optional
@@ -26,6 +27,7 @@ from ..diffusion import (DiffusionTables, Schedule, build_sigma_ladder,
                          sample_dpmpp_2m_sde, sample_heun)
 from ..ops.resize import pad_to_fit, resize_bilinear
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate
 from .chunking import chunked_x0_fn, make_chunks
 from .color_fix import adain_color_fix, wavelet_color_fix
 
@@ -46,8 +48,10 @@ class ModelBundle:
 class STARPipeline:
     """PyTorch counterpart of the JAX STARPipeline.
 
-    time_stages: synchronise the card after each stage and keep the host
-    seconds of each in `stage_seconds` (for measurement runs)."""
+    Each stage (text, vae_encode, denoise, vae_decode, color_fix) is a
+    span `sr.<stage>`. time_stages: synchronise the card at the end of each
+    stage, inside its span, and keep the host seconds of each in
+    `stage_seconds` (for measurement runs)."""
 
     def __init__(self, models: ModelBundle,
                  config: PipelineConfig = PipelineConfig(),
@@ -68,15 +72,16 @@ class STARPipeline:
         self._text_cache: dict[str, torch.Tensor] = {}
         self.last_latents: torch.Tensor | None = None   # of the last solve
 
-    def _stage(self, name: str, t0: float) -> float:
-        if self.time_stages:
-            if self.device.type == 'cuda':
-                torch.cuda.synchronize(self.device)
-            t1 = time.perf_counter()
-            self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) \
-                + t1 - t0
-            return t1
-        return t0
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        with annotate('sr.' + name):
+            t0 = time.perf_counter()
+            yield
+            if self.time_stages:
+                if self.device.type == 'cuda':
+                    torch.cuda.synchronize(self.device)
+                self.stage_seconds[name] = self.stage_seconds.get(
+                    name, 0.0) + time.perf_counter() - t0
 
     # ------------------------------------------------------------------ text
     @torch.no_grad()
@@ -104,54 +109,51 @@ class STARPipeline:
         noise = noise or {}
         w1, w2, h1, h2 = self._padding(target_h, target_w)
         f = video.shape[0]
-        t0 = time.perf_counter()
-        up = resize_bilinear(video, target_h, target_w)
-        padded = F.pad(up[None], (0, 0, w1, w2, h1, h2),
-                       value=cfg.pad_value)
-        z_lq = self.models.vae.encode(padded, generator=generator,
-                                      eps=noise.get('enc_eps'))
-        t0 = self._stage('vae_encode', t0)
+        with self._stage('vae_encode'):
+            up = resize_bilinear(video, target_h, target_w)
+            padded = F.pad(up[None], (0, 0, w1, w2, h1, h2),
+                           value=cfg.pad_value)
+            z_lq = self.models.vae.encode(padded, generator=generator,
+                                          eps=noise.get('enc_eps'))
+        with self._stage('denoise'):
+            t_init = torch.full((1,), sc.total_noise_levels - 1,
+                                dtype=torch.long, device=self.device)
+            eps = noise.get('diffuse')
+            if eps is None:
+                eps = torch.randn(z_lq.shape, generator=generator,
+                                  device=self.device)
+            noised = diffuse(self.tables, z_lq.float(), t_init,
+                             eps.to(self.device, torch.float32))
 
-        t_init = torch.full((1,), sc.total_noise_levels - 1,
-                            dtype=torch.long, device=self.device)
-        eps = noise.get('diffuse')
-        if eps is None:
-            eps = torch.randn(z_lq.shape, generator=generator,
-                              device=self.device)
-        noised = diffuse(self.tables, z_lq.float(), t_init,
-                         eps.to(self.device, torch.float32))
+            def denoise_chunk(xt, hint, t):
+                bb = xt.shape[0]
+                yp = torch.cat([y_cond.expand(bb, -1, -1),
+                                y_uncond.expand(bb, -1, -1)], dim=0)
+                tp = torch.full((bb,), t, dtype=torch.long,
+                                device=xt.device)
+                v = self.models.unet(xt, tp, yp, hint, cfg_pair=True)
+                v_c, v_u = v.chunk(2, dim=0)
+                return denoise_to_x0(self.tables, xt, tp, v_c, v_u,
+                                     guide_scale=sc.guide_scale,
+                                     guide_rescale=sc.guide_rescale)
 
-        def denoise_chunk(xt, hint, t):
-            bb = xt.shape[0]
-            yp = torch.cat([y_cond.expand(bb, -1, -1),
-                            y_uncond.expand(bb, -1, -1)], dim=0)
-            tp = torch.full((bb,), t, dtype=torch.long, device=xt.device)
-            v = self.models.unet(xt, tp, yp, hint, cfg_pair=True)
-            v_c, v_u = v.chunk(2, dim=0)
-            return denoise_to_x0(self.tables, xt, tp, v_c, v_u,
-                                 guide_scale=sc.guide_scale,
-                                 guide_rescale=sc.guide_rescale)
-
-        chunk_inds = (make_chunks(f, cfg.max_chunk_len,
-                                  chunk_overlap_ratio=cfg.chunk_overlap_ratio)
-                      if f > cfg.max_chunk_len else [(0, f)])
-        x0_fn = chunked_x0_fn(denoise_chunk, z_lq, chunk_inds,
-                              mesh=self.mesh)
-        sigmas = build_sigma_ladder(
-            self.schedule, steps=sc.steps, t_max=sc.total_noise_levels - 1,
-            t_min=0, solver_mode=sc.solver_mode,
-            discretization=sc.discretization)
-        if sc.solver == 'dpmpp_2m_sde':
-            gen = sample_dpmpp_2m_sde(x0_fn, noised, self.schedule, sigmas,
-                                      generator, eta=sc.eta,
-                                      s_noise=sc.s_noise,
-                                      noises=noise.get('sde'))
-        else:
-            gen = sample_heun(x0_fn, noised, self.schedule, sigmas,
-                              generator, s_noise=sc.s_noise,
-                              noises=noise.get('sde'))
-        self._stage('denoise', t0)
-        return gen
+            chunk_inds = (make_chunks(
+                f, cfg.max_chunk_len,
+                chunk_overlap_ratio=cfg.chunk_overlap_ratio)
+                if f > cfg.max_chunk_len else [(0, f)])
+            x0_fn = chunked_x0_fn(denoise_chunk, z_lq, chunk_inds,
+                                  mesh=self.mesh)
+            sigmas = build_sigma_ladder(
+                self.schedule, steps=sc.steps,
+                t_max=sc.total_noise_levels - 1, t_min=0,
+                solver_mode=sc.solver_mode, discretization=sc.discretization)
+            if sc.solver == 'dpmpp_2m_sde':
+                return sample_dpmpp_2m_sde(
+                    x0_fn, noised, self.schedule, sigmas, generator,
+                    eta=sc.eta, s_noise=sc.s_noise, noises=noise.get('sde'))
+            return sample_heun(x0_fn, noised, self.schedule, sigmas,
+                               generator, s_noise=sc.s_noise,
+                               noises=noise.get('sde'))
 
     @torch.no_grad()
     def decode(self, gen: torch.Tensor, video: torch.Tensor, target_h: int,
@@ -159,21 +161,19 @@ class STARPipeline:
         """Latents -> uint8 frames [F, target_h, target_w, 3] on the device
         (windowed VAE decode, unpad, colour fix, round)."""
         w1, _, h1, _ = self._padding(target_h, target_w)
-        t0 = time.perf_counter()
-        out = self.models.vae.decode(gen)                  # [1, F, ph, pw, 3]
-        t0 = self._stage('vae_decode', t0)
-        out = out[0, :, h1:h1 + target_h, w1:w1 + target_w, :]
-        out = torch.clamp(out.float() * 0.5 + 0.5, 0.0, 1.0) * 255.0
-        if self.cfg.color_fix == 'adain':
-            out = adain_color_fix(out, video)
-        elif self.cfg.color_fix == 'wavelet':
-            # the wavelet fix mixes pixels, so its source must have the
-            # output's size (AdaIN only reads per-frame statistics)
-            out = wavelet_color_fix(
-                out, resize_bilinear(video, target_h, target_w))
-        out = torch.round(torch.clamp(out, 0.0, 255.0)).to(torch.uint8)
-        self._stage('color_fix', t0)
-        return out
+        with self._stage('vae_decode'):
+            out = self.models.vae.decode(gen)              # [1, F, ph, pw, 3]
+        with self._stage('color_fix'):
+            out = out[0, :, h1:h1 + target_h, w1:w1 + target_w, :]
+            out = torch.clamp(out.float() * 0.5 + 0.5, 0.0, 1.0) * 255.0
+            if self.cfg.color_fix == 'adain':
+                out = adain_color_fix(out, video)
+            elif self.cfg.color_fix == 'wavelet':
+                # the wavelet fix mixes pixels, so its source must have the
+                # output's size (AdaIN only reads per-frame statistics)
+                out = wavelet_color_fix(
+                    out, resize_bilinear(video, target_h, target_w))
+            return torch.round(torch.clamp(out, 0.0, 255.0)).to(torch.uint8)
 
     # ---------------------------------------------------------- bucket warming
     def warm(self, f: int, h: int, w: int,
@@ -210,12 +210,11 @@ class STARPipeline:
             target_h, target_w = h * self.cfg.upscale, w * self.cfg.upscale
         else:
             target_h, target_w = target_res
-        t0 = time.perf_counter()
-        video = torch.as_tensor(frames, device=self.device).float()
-        video = (video / 255.0 - 0.5) / 0.5
-        y_cond = self.encode_prompt(prompt + self.cfg.positive_prompt)
-        y_uncond = self.encode_prompt(self.cfg.negative_prompt)
-        self._stage('text', t0)
+        with self._stage('text'):
+            video = torch.as_tensor(frames, device=self.device).float()
+            video = (video / 255.0 - 0.5) / 0.5
+            y_cond = self.encode_prompt(prompt + self.cfg.positive_prompt)
+            y_uncond = self.encode_prompt(self.cfg.negative_prompt)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         gen = self.solve(video, y_cond, y_uncond, target_h, target_w,
                          generator, noise)

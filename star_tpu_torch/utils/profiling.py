@@ -1,25 +1,35 @@
-"""Tracing and timing helpers (counterpart of star_tpu/utils/profiling.py;
-the reference has none).
+"""The port's spans (counterpart of star_tpu/utils/profiling.py; the
+reference has none).
 
 * trace(log_dir): a context manager over torch.profiler.profile (CPU and,
   where there is a card, CUDA activities) that writes a Chrome trace into
   `log_dir` (open it in chrome://tracing or Perfetto).
-* annotate(name): torch.profiler.record_function, a named region that
-  shows in the trace's timeline.
-* sync(x): waits for the CUDA stream of the first tensor in `x`.
-* StepTimer: host wall-clock times with the device synchronised, medians
-  by name.
+* annotate(name): a named range (a RecordFunction on the profiler's
+  host timeline; the profiler also projects it onto the card's timeline,
+  spanning the kernels launched inside it) while a profiler runs, else a
+  shared no-op context: entering a RecordFunction costs microseconds even
+  with no profiler, and the kernel launchers open one per launch.
+* spanned(name): a decorator, the function run inside annotate(name).
+* gc_spans(): while open, each garbage collection is a `gc` range on the
+  thread that collected, its generation the range's argument.
+
+Span names are dotted by layer (`jobs.*`, `sr.*`, `sampler.step`,
+`unet.call`, `dit.call`, `train.*`, `batch.*`, `kernel.K*`, `gc`); none is
+a kernel's compiled name, since a trace reader tells a range's device
+projection from a kernel by its name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import gc
 import os
-import time
-from typing import Dict, List
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,56 +44,50 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+def annotate(name: str, args: str | None = None):
+    """The range `name` (with the string `args`) while a profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name, args)
+    return _NO_SPAN
 
 
-def _first_tensor(x):
-    if isinstance(x, torch.Tensor):
-        return x
-    items = x.values() if isinstance(x, dict) else (
-        x if isinstance(x, (list, tuple)) else ())
-    for item in items:
-        t = _first_tensor(item)
-        if t is not None:
-            return t
-    return None
+def spanned(name: str):
+    """Decorator: each call of the function runs inside annotate(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
 
 
-def sync(x) -> None:
-    """Wait until the work that produces `x` is done: the current CUDA
-    stream of the first tensor found in `x` (a tensor, or lists, tuples and
-    dicts of them) is synchronised. Nothing to wait for on the CPU."""
-    t = _first_tensor(x)
-    if t is not None and t.is_cuda:
-        torch.cuda.current_stream(t.device).synchronize()
+class _GcRanges:
+    """gc.callbacks hook: a `gc` range from a collection's start to its
+    stop. Collections never overlap (one runs at a time, under the
+    interpreter lock), so one open range is all there can be."""
 
-
-class StepTimer:
     def __init__(self):
-        self.times: Dict[str, List[float]] = {}
+        self.open = None
 
-    @contextlib.contextmanager
-    def measure(self, name: str):
-        """Host seconds of the block (synchronise inside it to time the
-        device)."""
-        t0 = time.perf_counter()
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == 'start':
+            span = annotate('gc', str(info['generation']))
+            if span is not _NO_SPAN:
+                span.__enter__()
+                self.open = span
+        elif self.open is not None:
+            span, self.open = self.open, None
+            span.__exit__(None, None, None)
+
+
+@contextlib.contextmanager
+def gc_spans():
+    """Record each garbage collection inside the block as a `gc` range
+    (nothing while no profiler runs)."""
+    hook = _GcRanges()
+    gc.callbacks.append(hook)
+    try:
         yield
-        self.times.setdefault(name, []).append(time.perf_counter() - t0)
-
-    def timed(self, name: str, fn, *args, warmup: int = 2, iters: int = 5):
-        """fn(*args) `warmup` times untimed, then `iters` times, each timed
-        to its synchronised result; returns the last result."""
-        out = None
-        for _ in range(warmup):
-            out = fn(*args)
-            sync(out)
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            sync(out)
-            self.times.setdefault(name, []).append(time.perf_counter() - t0)
-        return out
-
-    def summary(self) -> Dict[str, float]:
-        return {k: float(np.median(v)) for k, v in self.times.items()}
+    finally:
+        gc.callbacks.remove(hook)

@@ -12,8 +12,7 @@ cli/warm_cache.py, utils/profiling.py, STARPipeline.warm):
   * serve.main on the CPU at tiny widths (--warm, one request, shutdown);
   * STARPipeline.warm on a tiny CPU pipeline: it runs, and a clip after it
     equals one without it;
-  * StepTimer against star_tpu's (tests/test_aux.py), profiling.trace
-    writing a Chrome trace with an annotated region, sync;
+  * profiling.trace writing a Chrome trace with an annotated region;
   * warm_cache.main raising when there is no nvcc.
 """
 
@@ -325,41 +324,13 @@ def test_serve_main_warms_and_serves_on_the_cpu(tmp_path, monkeypatch):
 
 # -------------------------------------------------- profiling, warm_cache
 
-def test_step_timer_matches_star_tpu():
-    import jax
-    import jax.numpy as jnp
-    from star_tpu.utils.profiling import StepTimer as JaxStepTimer
-    jt = JaxStepTimer()
-    jt.timed('double', jax.jit(lambda x: x * 2), jnp.ones((4,)), warmup=1,
-             iters=3)
-    t = profiling.StepTimer()
-    out = t.timed('double', lambda x: x * 2, torch.ones(4), warmup=1,
-                  iters=3)
-    assert torch.equal(out, torch.full((4,), 2.0))
-    s = t.summary()
-    assert s.keys() == jt.summary().keys() == {'double'} and s['double'] > 0
-    assert len(t.times['double']) == len(jt.times['double']) == 3
-    with t.measure('block'):
-        time.sleep(0.01)
-    assert t.summary()['block'] >= 0.01
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / 'tr')):
         with profiling.annotate('double_region'):
-            y = torch.ones(64) * 2
-        profiling.sync(y)
+            torch.ones(64) * 2
     trace = json.loads((tmp_path / 'tr' / 'trace.json').read_text())
     names = {e.get('name') for e in trace['traceEvents']}
     assert 'double_region' in names
-
-
-def test_sync_finds_the_first_tensor():
-    assert profiling._first_tensor({'a': [1, (torch.ones(1), 2)]}) \
-        is not None
-    assert profiling._first_tensor([1, 'x']) is None
-    profiling.sync({'a': [torch.ones(2)]})      # a CPU tensor: no wait
-    profiling.sync(None)
 
 
 def test_warm_cache_says_nvcc_is_missing(tmp_path, monkeypatch):

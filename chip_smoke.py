@@ -8,9 +8,10 @@
    d=64 training forward writing the log-sum-exp), K3 flash backward, K4
    frame attention, K5 fused GN+SiLU+temporal conv, K6 fused GN+SiLU+3x3
    conv, K7 fused nearest-2x+3x3 conv, K8 2x2 phase interleave, K9 fused
-   qk-LayerNorm+RoPE, K10 LayerNorm (optionally LIEM-gated), K11 residual
-   add + LayerNorm; K1 also at the CogVideoX DiT's 48 heads, 9680
-   tokens, dead key tail and prescaled q, and at the edges of its tiles;
+   qk-LayerNorm+RoPE and its backward, K10 LayerNorm (optionally
+   LIEM-gated), K11 residual add + LayerNorm; K1 also at the CogVideoX
+   DiT's 48 heads, 9680 tokens, dead key tail and prescaled q, and at the
+   edges of its tiles;
    K2 `with_l` and K3 also at the DiT's 9680 tokens and 48 heads; K10 and
    K11 at C = 320, 640, 1280 and 3072; K1, K9 and K10 also at the
    text-to-video DiT's 17776 tokens) against its plain PyTorch
@@ -577,6 +578,7 @@ def check_kernels(dev) -> dict[str, dict]:
     check_vae_kernels(dev, g, randn, record, results)
     check_train_kernels(dev, randn, record, results)
     check_dit_kernels(dev, g, randn, record, results)
+    check_k9_backward(dev, g, record, results)
     check_ln_kernels(dev, g, record, results)
     return results
 
@@ -1020,6 +1022,67 @@ def check_dit_kernels(dev, g, randn, record, results) -> None:
             library=f'F.scaled_dot_product_attention on [2, {live}, 48, 64]')
 
 
+def check_k9_backward(dev, g, record, results) -> None:
+    """K9's backward kernel against its plain version (the closed form):
+    at the Cog train step's [1, 9680, 3072] with dx alone (the DiT's q/k
+    scale and bias are frozen), the record, timed beside its plain version
+    and autograd through F.layer_norm (a partial yardstick: the backward of
+    the normalisation alone, no rotation); and at a ragged [2, 37, 192]
+    (the last block part-filled) with the scale and bias gradients, which
+    must come out the same bit for bit on a second call."""
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.models.dit.dit import rope_tables
+    from star_tpu_torch.ops import qk_ln_rope as qr
+
+    def case(b, s, heads, tables):
+        x = (torch.randn(b, s, heads * 64, generator=g, device=dev) * 2
+             + 0.5).to(torch.bfloat16)
+        ct = torch.randn(b, s, heads * 64, generator=g,
+                         device=dev).to(torch.bfloat16)
+        sc = torch.randn(64, generator=g, device=dev) * 0.1 + 1.0
+        bi = torch.randn(64, generator=g, device=dev) * 0.1
+        return (x, ct, sc, bi, *tables, heads, 1e-6, qr.LOG2E / 8.0)
+
+    ang = torch.rand(37, 64, generator=g, device=dev) * 3
+    args = case(2, 37, 3, (ang.cos(), ang.sin())) + (True,)
+    got, ref = qr._launch_bwd(*args), qr.qk_ln_rope_bwd_plain(*args)
+    for what, a, r in zip(('dx', 'dscale', 'dbias'), got, ref):
+        agrees(f'K9 backward [2,37,192] {what}', [(a, r)])
+    again = qr._launch_bwd(*args)
+    assert all(torch.equal(a, r) for a, r in zip(got, again)), \
+        'K9 backward: the scale and bias gradients differ between calls'
+
+    b, s, heads = 1, 9680, 48
+    cos, sin = (torch.from_numpy(a).to(dev)
+                for a in rope_tables(226, 7, 30, 45, s, 64))
+    args = case(b, s, heads, (cos, sin)) + (False,)
+    got = qr._launch_bwd(*args)
+    agree = agrees(f'K9 backward [{b},{s},{heads * 64}] dx', [(
+        got[0], qr.qk_ln_rope_bwd_plain(*args)[0])])
+    assert got[1:] == (None, None)
+    ms = cuda_ms(lambda: qr._launch_bwd(*args), reps=20)
+    plain_ms = cuda_ms(lambda: qr.qk_ln_rope_bwd_plain(*args), reps=2)
+    x, ct, sc, bi = args[:4]
+    x4 = x.view(b, s, heads, 64).detach().requires_grad_()
+    y = F.layer_norm(x4, (64,), sc.bfloat16(), bi.bfloat16(), 1e-6)
+    ct4 = ct.view(b, s, heads, 64)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(y, x4, ct4,
+                                                 retain_graph=True), reps=20)
+    # bytes as harness/work.qk_ln_rope_bwd_work counts them: x and ct read
+    # and dx written once (bf16), the [S, 64] fp32 tables read once
+    record('qk_ln_rope_bwd', 'cuda', 'star_tpu_torch/csrc/qk_ln_rope.cu',
+           'none: jax.grad of star_tpu/ops/qk_ln_rope.py '
+           'qk_ln_rope_reference', agree, ms, plain_ms, 20.0 * x.numel(),
+           3 * 2 * x.numel() + 2 * 4 * cos.numel(), lib_ms,
+           [b, s, heads * 64])
+    results['qk_ln_rope_bwd']['library'] = (
+        'partial: autograd of F.layer_norm over the [B, S, H, 64] view, '
+        'its backward alone, no rotation')
+    del x, ct, x4, y, ct4, got, args
+    torch.cuda.synchronize()
+
+
 def ln_inputs(shape, gated: bool, resid: bool, dev, g, param_dtype=None):
     """Inputs of K10 (resid False) or K11 at `shape`: (x or y, resid or
     None, scale, bias, gate_w or None), the activations bf16. Each row has
@@ -1430,10 +1493,12 @@ def check_small_train(dev) -> dict:
 # (tests/test_torch_cog_train.py).
 COG_GRAD_LEAF_TOL, COG_GRAD_ALL_TOL, COG_LOSS_TOL = 0.12, 0.02, 1e-3
 # the small DiT's launches in one loss_and_grads (2 layers, remat): K9 on q
-# and k forward and again in the recompute, K2 `with_l` likewise, K3 once a
-# layer, K10 three times a layer twice and the two final norms once
-SMALL_COG_TRAIN_LAUNCHES = {'qk_ln_rope': 8, 'flash_packed_lse': 4,
-                            'flash_bwd': 2, 'fused_ln': 14}
+# and k forward and again in the recompute, its backward kernel once for q
+# and once for k a layer, K2 `with_l` likewise, K3 once a layer, K10 three
+# times a layer twice and the two final norms once
+SMALL_COG_TRAIN_LAUNCHES = {'qk_ln_rope': 8, 'qk_ln_rope_bwd': 4,
+                            'flash_packed_lse': 4, 'flash_bwd': 2,
+                            'fused_ln': 14}
 
 
 def small_cog_train_case(seed: int = 13):
@@ -1916,6 +1981,7 @@ KERNEL_FAMILIES = (
     ('K6 fused GN+SiLU+3x3 conv', ('conv3x3_sm90',)),
     ('K7 fused upsample+conv', ('upsample_conv_sm90',)),
     ('K8 interleave', ('interleave2x2',)),
+    ('K9 backward', ('qk_ln_rope_bwd',)),
     ('K9 qk-LN+RoPE', ('qk_ln_rope',)),
     ('K10 LayerNorm', ('star_ln_kernel',)),
     ('K11 residual add + LayerNorm', ('star_resid_ln_kernel',)),
@@ -1977,7 +2043,9 @@ def profile_step(step, path: str, gemm_sources: bool = False,
     name them. `bounds` maps a family to the bound of its launches in the
     step (ms), logged beside the family's time. `ranges` names
     torch.profiler.record_function ranges (K9's backward) whose device
-    time, the kernels launched inside them, is reported on its own line."""
+    time, the span of the kernels launched inside them on the device's
+    timeline, is reported on its own line (the host-side range's device
+    time misses the kernels launched through ctypes)."""
     import os
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2019,10 +2087,10 @@ def profile_step(step, path: str, gemm_sources: bool = False,
            for ms, n, key in rows[:12]]
     in_ranges = {}
     for ev in prof.key_averages():
-        if ev.key in ranges and ev.device_type != DeviceType.CUDA:
-            dev_us = getattr(ev, 'device_time_total', None)
+        if ev.key in ranges and ev.device_type == DeviceType.CUDA:
+            dev_us = getattr(ev, 'self_device_time_total', None)
             if dev_us is None:
-                dev_us = getattr(ev, 'cuda_time_total', 0.0)
+                dev_us = getattr(ev, 'self_cuda_time_total', 0.0)
             in_ranges[ev.key] = dict(ms=dev_us / 1e3, count=ev.count)
     with open(path, 'a') as fh:
         for key, r in in_ranges.items():
@@ -2695,11 +2763,11 @@ def run_t2v(dev, models) -> dict:
 # recompute (K9 on q and k, K2 `with_l`, K10 three times each), K3 once a
 # layer in the backward, the two final norms once; T5 and the causal VAE
 # launch none, and no K1 runs under grad (tests/test_torch_cog_train.py
-# derives these on the CPU). K9's backward (a plain recompute) runs once
-# for each of its forward launches outside the recompute.
-COG_TRAIN_STEP_LAUNCHES = {'qk_ln_rope': 2 * 84, 'flash_packed_lse': 2 * 42,
-                           'flash_bwd': 42, 'fused_ln': 2 * 42 * 3 + 2,
-                           'flash_packed': 0}
+# derives these on the CPU). K9's backward kernel launches once a backward
+# call, one for each of K9's forward launches outside the recompute.
+COG_TRAIN_STEP_LAUNCHES = {'qk_ln_rope': 2 * 84, 'qk_ln_rope_bwd': 84,
+                           'flash_packed_lse': 2 * 42, 'flash_bwd': 42,
+                           'fused_ln': 2 * 42 * 3 + 2, 'flash_packed': 0}
 COG_TRAIN_K9_BACKWARDS = 84
 COG_TRAIN_TIMED_STEPS = 3
 
@@ -3205,11 +3273,13 @@ def main() -> int:
     pairs = run_make_pairs(dev)
     for name, rec in results.items():
         # each kernel's launches on the path it belongs to: the training
-        # forward and backward in the train step, K9 in the Cog clip, the
-        # others in the I2VGen clip
+        # forward and backward in the train step, K9 in the Cog clip, its
+        # backward in the Cog train step, the others in the I2VGen clip
         on_train = name in ('flash_packed_lse', 'flash_bwd')
-        rec['launches'] = (train if on_train else cog if name == 'qk_ln_rope'
-                           else run)['launches'][name]
+        rec['launches'] = (
+            train if on_train else cog if name == 'qk_ln_rope'
+            else cog_train if name == 'qk_ln_rope_bwd' else run
+        )['launches'][name]
         rec['launches_per_cfg_step'] = step['launches'][name]
         rec['launches_per_train_step'] = train['launches'][name]
         rec['launches_per_dropout_train_step'] = dropout['launches'][name]

@@ -68,6 +68,9 @@ _SIGNATURES = {
     'star_interleave2x2': [P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, cos, sin, scale, bias, out, rows, S, H, eps, stream
     'star_qk_ln_rope': [P, P, P, P, P, P, L, I, I, Fl, P],
+    # x, ct, cos, sin, scale, dx, partials (or null), rows, S, H, eps,
+    # fold_scale, stream
+    'star_qk_ln_rope_bwd': [P, P, P, P, P, P, P, L, I, I, Fl, Fl, P],
     # x, scale, bias, gate_w (or null), params bf16, out, rows, C, eps,
     # stream
     'star_fused_ln': [P, P, P, P, I, P, L, I, Fl, P],

@@ -305,15 +305,17 @@ def test_optimizer_is_optax_adamw_default():
 
 def _count_launches(monkeypatch):
     """Count, on the CPU paths, the dispatches that launch a kernel on the
-    card: K9's and K10's (their wrappers' _run and _ln), the training
-    attention's forward (K2 `with_l`) and backward (K3) in its autograd
-    Function, and any attention outside autograd (K1)."""
+    card: K9's forward and backward and K10's (their wrappers' _run,
+    _run_bwd and _ln), the training attention's forward (K2 `with_l`) and
+    backward (K3) in its autograd Function, and any attention outside
+    autograd (K1)."""
     import importlib
     qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
     fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
     fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
-    counts = dict.fromkeys(('qk_ln_rope', 'fused_ln', 'flash_packed_lse',
-                            'flash_bwd', 'flash_packed'), 0)
+    counts = dict.fromkeys(('qk_ln_rope', 'qk_ln_rope_bwd', 'fused_ln',
+                            'flash_packed_lse', 'flash_bwd', 'flash_packed'),
+                           0)
 
     def counted(name, fn):
         def run(*a, **k):
@@ -321,6 +323,8 @@ def _count_launches(monkeypatch):
             return fn(*a, **k)
         return run
     monkeypatch.setattr(qr, '_run', counted('qk_ln_rope', qr._run))
+    monkeypatch.setattr(qr, '_run_bwd', counted('qk_ln_rope_bwd',
+                                                qr._run_bwd))
     monkeypatch.setattr(fl, '_ln', counted('fused_ln', fl._ln))
     fn = fa._FlashAttentionD64
     monkeypatch.setattr(fn, 'forward', staticmethod(
@@ -376,10 +380,10 @@ def test_small_cog_train_tolerance_separates_a_wrong_k9_backward(
     """chip_smoke.py holds phase 2b's small Cog train step on the card to
     COG_GRAD_LEAF_TOL and COG_GRAD_ALL_TOL of the host's fp32 gradients.
     On the host alone, a K9 backward that rotates the wrong way (its
-    recompute with sin negated) misses the per-leaf tolerance by more than
-    3x (measured 1.21, 10x), and the whole set's (whose largest gradients
-    sit in the final layer, after every K9) by 0.8x: the per-leaf
-    tolerance is the one that separates it."""
+    closed form, qk_ln_rope_bwd_plain, with sin negated) misses the
+    per-leaf tolerance by more than 3x (measured 1.21, 10x), and the whole
+    set's (whose largest gradients sit in the final layer, after every K9)
+    by 0.8x: the per-leaf tolerance is the one that separates it."""
     import copy
     import importlib
     import chip_smoke
@@ -387,13 +391,11 @@ def test_small_cog_train_tolerance_separates_a_wrong_k9_backward(
     dit, batch, idx, noise = chip_smoke.small_cog_train_case()
     _, ref = chip_smoke.small_cog_train_grads(copy.deepcopy(dit), batch, idx,
                                               noise)
-    plain = qr.qk_ln_rope_plain
+    plain = qr.qk_ln_rope_bwd_plain
 
-    def wrong_way(x, scale, bias, cos, sin, *a, **k):
-        # grad mode is on only in the backward's recompute
-        sin = -sin if torch.is_grad_enabled() else sin
-        return plain(x, scale, bias, cos, sin, *a, **k)
-    monkeypatch.setattr(qr, 'qk_ln_rope_plain', wrong_way)
+    def wrong_way(x, ct, scale, bias, cos, sin, *a, **k):
+        return plain(x, ct, scale, bias, cos, -sin, *a, **k)
+    monkeypatch.setattr(qr, 'qk_ln_rope_bwd_plain', wrong_way)
     _, bad = chip_smoke.small_cog_train_grads(dit, batch, idx, noise)
     leaf, every, _ = chip_smoke.grad_errors(ref, bad)
     assert leaf > 3 * chip_smoke.COG_GRAD_LEAF_TOL, leaf

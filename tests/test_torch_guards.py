@@ -701,48 +701,88 @@ def test_qk_ln_rope_launches_for_cuda_tensors_and_plain_for_cpu(monkeypatch):
 
 
 def test_qk_ln_rope_refuses_grad():
-    """K9 has no backward kernel: on CUDA tensors that require grad, with
-    grad mode on, its launcher raises before building anything (the
-    wrapper goes through the autograd Function instead, below)."""
+    """K9's forward launcher records no backward: on CUDA tensors that
+    require grad, with grad mode on, it raises before building anything
+    (the wrapper goes through the autograd Function instead, whose
+    backward launches the backward kernel, below)."""
     qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
     x = _fake(torch.zeros(1, 5, 128, dtype=torch.bfloat16), True)
     with pytest.raises(RuntimeError, match='no backward kernel'):
         qr._launch(*_k9_args(x), 1e-6, 1.0)
 
 
-def test_qk_ln_rope_under_grad_launches_forward_and_recomputes_plain(
+def test_qk_ln_rope_under_grad_launches_both_kernels_on_cuda_and_plain_on_cpu(
         monkeypatch):
-    """An input requiring grad goes through K9's autograd Function: the
-    kernel launches in the forward (under the Function, where grad mode
-    is off, so the launcher's refusal does not fire), the plain version
-    runs only in the backward, and the gradients reach x, scale and bias
-    but not the tables; the backward is counted in BACKWARDS, not in the
-    launches."""
+    """An input requiring grad goes through K9's autograd Function. On a
+    CUDA tensor the forward kernel launches (under the Function, where
+    grad mode is off, so the launcher's refusal does not fire) and the
+    backward launches the backward kernel, asking for the scale and bias
+    gradients only when they require grad; no plain version runs. On a CPU
+    tensor the backward is qk_ln_rope_bwd_plain. The gradients reach x,
+    scale and bias but not the tables, and BACKWARDS counts the backward
+    on both devices."""
     qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
-    events, phase = [], ['forward']
+    events = []
 
     def launch(x, *a):
         assert not qr._build.needs_grad(x), 'the launcher would refuse'
         events.append('k9')
         return _fake(torch.zeros(x.shape))
-    monkeypatch.setattr(qr, '_launch', launch)
-    real = qr.qk_ln_rope_plain
 
-    def plain(*a, **k):
-        assert phase[0] == 'backward', 'the plain version ran in the forward'
-        events.append('plain')
-        return real(*a, **k)
-    monkeypatch.setattr(qr, 'qk_ln_rope_plain', plain)
+    def launch_bwd(x, ct, sc, bi, cos, sin, heads, eps, fold, want_params):
+        events.append(('k9_bwd', want_params))
+        return torch.zeros(x.shape), torch.zeros(64), torch.zeros(64)
+    monkeypatch.setattr(qr, '_launch', launch)
+    monkeypatch.setattr(qr, '_launch_bwd', launch_bwd)
+    monkeypatch.setattr(qr, 'qk_ln_rope_plain', _refuse)
+    monkeypatch.setattr(qr, 'qk_ln_rope_bwd_plain', _refuse)
     x = _fake(torch.randn(1, 5, 128), requires_grad=True)
     sc, bi = torch.ones(64, requires_grad=True), torch.zeros(
         64, requires_grad=True)
     cos, sin = torch.ones(5, 64), torch.zeros(5, 64)
     qr.BACKWARDS = 0
     out = qr.qk_ln_rope(x, sc, bi, cos, sin, 2, fold_scale=0.5)
-    phase[0] = 'backward'
     grads = torch.autograd.grad(out.float().sum(), (x, sc, bi))
-    assert events == ['k9', 'plain'] and qr.BACKWARDS == 1
+    assert events == ['k9', ('k9_bwd', True)] and qr.BACKWARDS == 1
     assert [g.shape for g in grads] == [x.shape, (64,), (64,)]
+
+    monkeypatch.undo()
+    monkeypatch.setattr(qr, '_launch', _refuse)
+    monkeypatch.setattr(qr, '_launch_bwd', _refuse)
+    real = qr.qk_ln_rope_bwd_plain
+
+    def bwd_plain(*a):
+        events.append(('bwd_plain', a[-1]))
+        return real(*a)
+    monkeypatch.setattr(qr, 'qk_ln_rope_bwd_plain', bwd_plain)
+    x = torch.randn(1, 5, 128, requires_grad=True)
+    out = qr.qk_ln_rope(x, torch.ones(64), torch.zeros(64), cos, sin, 2)
+    assert torch.autograd.grad(out.sum(), x)[0].shape == x.shape
+    assert events[2:] == [('bwd_plain', False)] and qr.BACKWARDS == 2
+
+
+@pytest.mark.parametrize('case', ['cpu', 'fp32', 'strided_x', 'strided_ct',
+                                  'head_dim_32', 'ct_shape', 'table_32'])
+def test_qk_ln_rope_backward_launcher_refuses_what_the_kernel_does_not_take(
+        case):
+    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
+    bf = lambda *s: _fake(torch.zeros(*s, dtype=torch.bfloat16))
+    x, strided = bf(1, 5, 128), bf(1, 128, 5).transpose(1, 2)
+    xs, ct, heads, width = {
+        'cpu': (torch.zeros(1, 5, 128, dtype=torch.bfloat16),
+                torch.zeros(1, 5, 128, dtype=torch.bfloat16), 2, 64),
+        'fp32': (_fake(torch.zeros(1, 5, 128)), _fake(torch.zeros(1, 5, 128)),
+                 2, 64),
+        'strided_x': (strided, x, 2, 64),
+        'strided_ct': (x, strided, 2, 64),
+        'head_dim_32': (x, x, 4, 64),
+        'ct_shape': (x, bf(1, 6, 128), 2, 64),
+        'table_32': (x, x, 2, 32),
+    }[case]
+    sc, bi = torch.ones(64), torch.zeros(64)
+    cos, sin = torch.ones(5, width), torch.zeros(5, width)
+    with pytest.raises(ValueError):
+        qr._launch_bwd(xs, ct, sc, bi, cos, sin, heads, 1e-6, 1.0, True)
 
 
 @pytest.mark.parametrize('case', ['cpu', 'fp32', 'strided', 'head_dim_32',
@@ -818,6 +858,46 @@ def test_qk_ln_rope_on_the_card():
     with pytest.raises(ValueError):
         qr.qk_ln_rope(x.transpose(0, 1).contiguous().transpose(0, 1), sc,
                       bi, cos, sin, 6)
+
+
+@pytest.mark.cuda
+def test_qk_ln_rope_backward_on_the_card():
+    """On a card: K9's backward kernel agrees with qk_ln_rope_bwd_plain
+    (relative, as chip_smoke.py holds it) at the DiT's [1, 9680, 3072]
+    with dx alone, and at a ragged [2, 37, 192] with the scale and bias
+    gradients, which come out the same bit for bit on a second call; under
+    the autograd Function a backward is one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from star_tpu_torch import ops
+    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
+    g = torch.Generator(device='cuda').manual_seed(1)
+    rnd = lambda *s: torch.randn(*s, generator=g, device='cuda')
+
+    def agree(a, b):
+        a, b = a.float(), b.float()
+        return bool((a - b).abs().max() <= 2e-2 * b.abs().max()
+                    and (a - b).norm() <= 1e-2 * b.norm())
+    for b, s, heads, want in ((1, 9680, 48, False), (2, 37, 3, True)):
+        x = (rnd(b, s, heads * 64) * 2 + 0.5).bfloat16()
+        ct = rnd(b, s, heads * 64).bfloat16()
+        sc, bi = rnd(64) * 0.1 + 1, rnd(64) * 0.1
+        ang = torch.rand(s, 64, generator=g, device='cuda') * 3
+        cos, sin = ang.cos(), ang.sin()
+        cos[:2], sin[:2] = 1.0, 0.0
+        args = (x, ct, sc, bi, cos, sin, heads, 1e-6, 0.18, want)
+        got, ref = qr._launch_bwd(*args), qr.qk_ln_rope_bwd_plain(*args)
+        assert got[0].dtype == torch.bfloat16 and agree(got[0], ref[0])
+        if want:
+            assert all(agree(a, r) for a, r in zip(got[1:], ref[1:]))
+            again = qr._launch_bwd(*args)
+            assert all(torch.equal(a, r) for a, r in zip(got, again))
+        else:
+            assert got[1:] == (None, None)
+    ops.reset_launch_counts()
+    xg = x.requires_grad_()
+    torch.autograd.grad(qr.qk_ln_rope(xg, sc, bi, cos, sin, heads), xg, ct)
+    assert ops.launch_counts()['qk_ln_rope_bwd'] == 1 == qr.BACKWARDS
 
 
 # ------------------------------------------------------------- K10, K11

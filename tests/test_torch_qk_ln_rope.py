@@ -1,5 +1,6 @@
 """K9's plain version (star_tpu_torch/ops/qk_ln_rope.py) against star_tpu's
-Pallas kernel in interpret mode and its jnp reference, and the DiT's RoPE
+Pallas kernel in interpret mode and its jnp reference, its backward's
+closed form against autograd through the plain version, and the DiT's RoPE
 tables against the JAX DiT's head-tiled ones.
 
 The port takes [S, 64] tables (one row for every head) where the JAX
@@ -15,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from star_tpu_torch.ops.qk_ln_rope import LOG2E, qk_ln_rope, qk_ln_rope_plain
+from star_tpu_torch.ops.qk_ln_rope import (LOG2E, qk_ln_rope,
+                                           qk_ln_rope_bwd_plain,
+                                           qk_ln_rope_plain)
 from test_torch_harness import randn, rng
 
 B, S, H, D = 2, 84, 4, 64     # S pads to the Pallas kernel's 96-row block
@@ -99,6 +102,59 @@ def test_identity_rows_pass_the_normalised_values_through():
         torch.testing.assert_close(got[:, rows], want[:, rows], atol=1e-5,
                                    rtol=1e-5)
     assert not torch.allclose(got[:, TEXT:S - TAIL], want[:, TEXT:S - TAIL])
+
+
+@pytest.mark.parametrize('b, s, heads, fold, want_params, dtype', [
+    (1, 13, 1, 1.0, True, torch.float32),
+    (2, 13, 3, 0.18, True, torch.float32),
+    (2, 13, 3, 0.18, False, torch.float32),
+    (2, 13, 3, 1.0, True, torch.bfloat16),
+    (1, 13, 3, 0.18, False, torch.bfloat16),
+])
+def test_bwd_plain_matches_autograd_of_the_plain_version(b, s, heads, fold,
+                                                         want_params, dtype):
+    """qk_ln_rope_bwd_plain (the CPU backward, and the backward kernel's
+    plain version) against torch.autograd.grad of qk_ln_rope_plain, with
+    identity table rows at the front and the tail (the DiT's text and pad
+    rows). fp32 within 1e-5 of each gradient's largest; bf16 x and
+    cotangent, dx rounded to bf16 once on both sides, within one bf16 step
+    of each value, and the fp32 scale and bias gradients within 1e-5.
+    Without `want_params` dx is the same, bit for bit, and no scale or bias
+    gradient comes back."""
+    r = rng(11)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    x = t(randn(r, b, s, heads * D) * 2 + 0.5).to(dtype)
+    ct = t(randn(r, b, s, heads * D)).to(dtype)
+    scale, bias = t(1.0 + randn(r, D, scale=0.1)), t(randn(r, D, scale=0.1))
+    ang = r.uniform(0, 3, (s, D))
+    cos, sin = t(np.cos(ang)), t(np.sin(ang))
+    cos[:2], sin[:2], cos[-1:], sin[-1:] = 1.0, 0.0, 1.0, 0.0
+    leaves = [a.clone().requires_grad_() for a in (x, scale, bias)]
+    out = qk_ln_rope_plain(*leaves[:3], cos, sin, heads, fold_scale=fold)
+    want = torch.autograd.grad(out, leaves, ct)
+    got = qk_ln_rope_bwd_plain(x, ct, scale, bias, cos, sin, heads,
+                               fold_scale=fold, want_params=want_params)
+    assert got[0].dtype == dtype
+    if dtype == torch.bfloat16:
+        g, w = got[0].float(), want[0].float()
+        step = 2.0 ** (torch.floor(torch.log2(w.abs() + 1e-30)) - 7)
+        assert bool((g - w).abs().le(step).all()), \
+            float(((g - w).abs() / step).max())
+    else:
+        assert rel_err(got[0], want[0]) <= 1e-5
+    if want_params:
+        for g, w in zip(got[1:], want[1:]):
+            assert g.dtype == torch.float32 and rel_err(g, w) <= 1e-5
+    else:
+        assert got[1:] == (None, None)
+        full = qk_ln_rope_bwd_plain(x, ct, scale, bias, cos, sin, heads,
+                                    fold_scale=fold)
+        assert torch.equal(got[0], full[0])
+
+
+def rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
 
 
 def test_rope_tables_equal_the_jax_dits_head_tiled_tables():

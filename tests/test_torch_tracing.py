@@ -321,6 +321,33 @@ def test_k9_backward_keeps_its_range_name():
     assert names.count('qk_ln_rope_backward') == 1
 
 
+def test_k9_backward_kernel_launches_directly_in_its_range(monkeypatch):
+    """On a CUDA tensor (the library stubbed) the backward kernel's entry
+    point is called directly inside the one `qk_ln_rope_backward` range
+    and opens no `kernel.*` range: kineto projects a range onto the
+    kernels launched directly in it, which is what
+    k9_bwd_roofline.train reads."""
+    class Library(_Library):
+        def star_qk_ln_rope_bwd(self, *args):
+            with torch.profiler.record_function('entry'):
+                return 0
+    monkeypatch.setattr(_build, 'lib', Library)
+    monkeypatch.setattr(_build, 'stream_ptr', lambda device: 0)
+    x = _fake(1, 16, 128).requires_grad_()
+    before = ops.launch_counts()['qk_ln_rope_bwd']
+    with _profile() as prof:
+        out = qk.qk_ln_rope(x, _z(64), _z(64), _z(16, 64), _z(16, 64), 2)
+        torch.autograd.grad(out, x, torch.ones_like(out))
+    assert ops.launch_counts()['qk_ln_rope_bwd'] == before + 1
+    events = list(prof.events())
+    entry, = [e for e in events if e.name == 'entry']
+    assert entry.cpu_parent.name == 'qk_ln_rope_backward'
+    assert [e.name for e in events if e.name == 'qk_ln_rope_backward'] \
+        == ['qk_ln_rope_backward']
+    assert [e.name for e in events if e.name.startswith('kernel.')] \
+        == ['kernel.K9']
+
+
 # --------------------------------------------------------- --trace_dir
 
 def test_inference_sr_trace_dir_writes_the_spans(tiny_star, tmp_path):

@@ -9,7 +9,8 @@
    frame attention, K5 fused GN+SiLU+temporal conv, K6 fused GN+SiLU+3x3
    conv, K7 fused nearest-2x+3x3 conv, K8 2x2 phase interleave, K9 fused
    qk-LayerNorm+RoPE and its backward, K10 LayerNorm (optionally
-   LIEM-gated), K11 residual add + LayerNorm; K1 also at the CogVideoX
+   LIEM-gated), K11 residual add + LayerNorm, K12 the UNet's GEGLU (bit
+   for bit but for the GELU's last bit); K1 also at the CogVideoX
    DiT's 48 heads, 9680 tokens, dead key tail and prescaled q, and at the
    edges of its tiles;
    K2 `with_l` and K3 also at the DiT's 9680 tokens and 48 heads; K10 and
@@ -102,7 +103,7 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 MAIN_PATH_KERNELS = ('flash_packed', 'flash_d512', 'temporal_attention',
                      'fused_gn_silu_tconv3', 'conv3x3', 'upsample_conv2x',
-                     'fused_ln', 'fused_resid_ln')
+                     'fused_ln', 'fused_resid_ln', 'geglu')
 # K10 and K11 launches, from the models' structure. One UNet+ControlNet
 # call runs 25 temporal transformer blocks (K10 gated at norm1, K11 at
 # norm2 and norm3) and 23 spatial ones (K11 at norm2 and norm3; the two at
@@ -114,6 +115,21 @@ MAIN_PATH_KERNELS = ('flash_packed', 'flash_d512', 'temporal_attention',
 LN_PER_CFG_STEP = {'fused_ln': 25, 'fused_resid_ln': 96}
 LN_PER_TRAIN_STEP = {'fused_ln': 50, 'fused_resid_ln': 192}
 LN_PER_TEXT_ENCODE = 47
+# K12 launches by shape, from the models' structure (derived on the CPU
+# from the full-depth models at narrow widths and held there by
+# tests/test_torch_geglu.py): the feed-forward of each of a UNet+ControlNet
+# call's 48 transformer blocks, (rows, inner) -> launches, at 16 frames
+# (the CFG pair) of each level's tokens but for the two init temporal
+# transformers, which run before the split at 8. A train step runs each
+# twice (the forward and the remat recompute; the backward recomputes the
+# plain version).
+GEGLU_PER_CFG_CALL = {(230400, 1280): 14, (115200, 1280): 2,
+                      (57600, 2560): 14, (14720, 5120): 14, (3840, 5120): 4}
+GEGLU_PER_CFG_STEP = {'geglu': sum(GEGLU_PER_CFG_CALL.values())}      # 48
+GEGLU_PER_TRAIN_STEP = {'geglu': 2 * GEGLU_PER_CFG_STEP['geglu']}
+# the shapes K12 is timed at (PERF.md §6): one a level
+GEGLU_TIMED_SHAPES = ((230400, 1280), (57600, 2560), (14720, 5120),
+                      (3840, 5120))
 LN_PER_DIT_STEP = {'fused_ln': 42 * 3 + 2}
 # the kernels of one DiT call, SR or stock (42 layers: K9 on q and on k,
 # K1 once, K10 three times; and the two final norms)
@@ -220,6 +236,13 @@ def k7_work(n, h, w, c, cout) -> tuple[float, float]:
     return flops, nbytes
 
 
+def geglu_work(rows, inner) -> tuple[float, float]:
+    """K12's FLOPs (about 12 a value: the GELU and the product) and bytes
+    (h and the gate read, out written: 6 a value) on p [rows, 2*inner]."""
+    n = rows * inner
+    return 12.0 * n, 6.0 * n
+
+
 def bound_sum_ms(kind: str, *tables: dict) -> float:
     """Sum over shapes of launches x bound (bound_ms) of K5, K6 or K7."""
     total = 0.0
@@ -264,7 +287,7 @@ TRAIN_COG_FREQ_ROW_KEYS = TRAIN_COG_ROW_KEYS | {'loss_low', 'loss_high'}
 TRAIN_PATH_KERNELS = ('flash_packed_lse', 'flash_bwd', 'flash_d512',
                       'temporal_attention', 'fused_gn_silu_tconv3',
                       'conv3x3', 'upsample_conv2x', 'fused_ln',
-                      'fused_resid_ln')
+                      'fused_resid_ln', 'geglu')
 
 
 def log(msg: str) -> None:
@@ -580,6 +603,7 @@ def check_kernels(dev) -> dict[str, dict]:
     check_dit_kernels(dev, g, randn, record, results)
     check_k9_backward(dev, g, record, results)
     check_ln_kernels(dev, g, record, results)
+    check_geglu(dev, record, results)
     return results
 
 
@@ -1203,6 +1227,77 @@ def check_ln_kernels(dev, g, record, results) -> None:
     torch.cuda.synchronize()
 
 
+def geglu_ulps(out, p) -> int:
+    """K12's output against the plain version: bit for bit, except where
+    the kernel's tanhf (the libdevice of the toolkit that built it) and
+    PyTorch's (that of the toolkit PyTorch was built with) round the GELU
+    to neighbouring bf16 values; there the output must be h times one of
+    the plain GELU's two bf16 neighbours, rounded. Returns how many values
+    differ; raises on any other difference."""
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops.geglu import geglu_plain
+    diff = out != geglu_plain(p)
+    n = int(diff.sum())
+    if n == 0:
+        return 0
+    h, gate = (t[diff] for t in p.chunk(2, dim=-1))
+    bits = F.gelu(gate.float(), approximate='tanh').to(
+        torch.bfloat16).view(torch.int16)
+    got = out[diff]
+    near = [(h.float() * (bits + d).view(torch.bfloat16).float()).to(
+        torch.bfloat16) for d in (-1, 1)]
+    if not bool(((got == near[0]) | (got == near[1])).all()):
+        raise AssertionError('K12 differs from its plain version by more '
+                             'than the GELU\'s last bit')
+    return n
+
+
+def check_geglu(dev, record, results) -> None:
+    """K12 against its plain version at the GEGLU shapes of a CFG call,
+    one a level, and at a ragged M: bit for bit but for the GELU's last bf16
+    bit where the two tanhf differ (geglu_ulps). Timed at each, beside the
+    plain version (the four passes the UNet ran before) and, as the library
+    yardstick, PyTorch's bf16 GELU of the gate view times h: the same
+    function (its GELU computed in fp32 and rounded once) in two passes."""
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import geglu as gg
+    g = torch.Generator(device=dev).manual_seed(12)
+    shapes = []
+    for rows, inner in (*GEGLU_TIMED_SHAPES, (1001, 1280), (77, 40)):
+        p = (torch.randn(rows, 2 * inner, generator=g, device=dev) * 3
+             ).to(torch.bfloat16)
+        what = f'K12 [{rows},{2 * inner}]'
+        out = gg.geglu(p)
+        ulps = geglu_ulps(out, p)
+        agree = agrees(what, [(out, gg.geglu_plain(p))])
+        log(f'{what}: {ulps} of {out.numel()} values one GELU bit off the '
+            f'plain version')
+        del out
+        if (rows, inner) not in GEGLU_TIMED_SHAPES:
+            continue
+        h, gate = p.chunk(2, dim=-1)
+        library = lambda: F.gelu(gate, approximate='tanh') * h
+        lib_same = torch.equal(library(), gg.geglu_plain(p))
+        ms = cuda_ms(lambda: gg.geglu(p), reps=20, graph=True)
+        plain_ms = cuda_ms(lambda: gg.geglu_plain(p), reps=5)
+        lib_ms = cuda_ms(library, reps=20, graph=True)
+        work = geglu_work(rows, inner)
+        if not shapes:
+            record('geglu', 'cuda', 'star_tpu_torch/csrc/geglu.cu',
+                   'none: XLA fuses star_tpu/models/unet/blocks.py:108',
+                   agree, ms, plain_ms, *work, lib_ms, [rows, 2 * inner])
+        shapes.append(sub_record([rows, 2 * inner], agree, ms, plain_ms,
+                                 *work, lib_ms, gelu_bit_off=ulps,
+                                 library_bit_for_bit=lib_same))
+        del p, h, gate
+    results['geglu'].update(
+        shapes=shapes, library='F.gelu of the bf16 gate view times h: the '
+        'same function in two passes')
+    torch.cuda.synchronize()
+
+
 # --------------------------------------------------------------------------
 # phase 2b: small models, kernels on the card vs plain versions on the host
 
@@ -1266,7 +1361,7 @@ def check_small_models(dev) -> dict:
     e_unet, c_unet = card_vs_host(dev, 'UNet+ControlNet [1,8,26,24]', ref,
                                   card, x, tt, y, hint, cfg_pair=True)
     for k in ('flash_packed', 'temporal_attention', 'fused_gn_silu_tconv3',
-              'fused_ln', 'fused_resid_ln'):
+              'fused_ln', 'fused_resid_ln', 'geglu'):
         assert c_unet.get(k, 0) > 0, (k, c_unet)
 
     vae = randomised(SVDTemporalVAE((32, 32, 64, 512), encoder_layers=1,
@@ -1470,7 +1565,7 @@ def check_small_train(dev) -> dict:
         f'error {every:.3e} of the largest gradient (tol {GRAD_ALL_TOL}); '
         f'launches {counts}')
     for k in ('flash_packed_lse', 'flash_bwd', 'temporal_attention',
-              'fused_gn_silu_tconv3', 'fused_ln', 'fused_resid_ln'):
+              'fused_gn_silu_tconv3', 'fused_ln', 'fused_resid_ln', 'geglu'):
         assert counts.get(k, 0) > 0, (k, counts)
     assert loss_err <= LOSS_TOL and norm_err <= LOSS_TOL, (loss_err,
                                                            norm_err)
@@ -1716,7 +1811,7 @@ class MemoryVideos:
 
 
 def clip_launches(unet_calls: int, text_encodes: int) -> dict:
-    """The exact launches of K2 d=512, K5-K7, K10 and K11 in one I2VGen
+    """The exact launches of K2 d=512, K5-K7 and K10-K12 in one I2VGen
     clip of 8 frames of 180x320 with `unet_calls` UNet calls and
     `text_encodes` CLIP encodes: two in a fresh pipeline (the prompt and
     the negative one), none for a prompt in the pipeline's text cache."""
@@ -1725,6 +1820,7 @@ def clip_launches(unet_calls: int, text_encodes: int) -> dict:
         'fused_ln': n * LN_PER_CFG_STEP['fused_ln']
         + text_encodes * LN_PER_TEXT_ENCODE,
         'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln'],
+        'geglu': n * GEGLU_PER_CFG_STEP['geglu'],
         'flash_d512': D512_PER_CLIP,
         'fused_gn_silu_tconv3': n * K5_PER_CFG_STEP + 2 * K5_PER_DECODE,
         'conv3x3': K6_PER_ENCODE + 2 * K6_PER_DECODE,
@@ -1964,10 +2060,14 @@ def time_cfg_step(dev, models, profile: str | None) -> dict:
         log(f'CFG UNet+ControlNet step [8f, 90x160, cfg_pair, bf16]: '
             f'{ms:.1f} ms; launches per step {per_step}')
         assert_launches('CFG step', per_step, {
-            **LN_PER_CFG_STEP, 'fused_gn_silu_tconv3': K5_PER_CFG_STEP})
+            **LN_PER_CFG_STEP, **GEGLU_PER_CFG_STEP,
+            'fused_gn_silu_tconv3': K5_PER_CFG_STEP})
         if profile:
             res['profile'] = profile_step(step, profile, bounds={
-                'K5 fused GN+SiLU+tconv': bound_sum_ms('k5', unet_k5(2))})
+                'K5 fused GN+SiLU+tconv': bound_sum_ms('k5', unet_k5(2)),
+                'K12 GEGLU': sum(n * bound_ms(*geglu_work(*shape))[0]
+                                 for shape, n in
+                                 GEGLU_PER_CFG_CALL.items())})
     return res
 
 
@@ -1985,6 +2085,7 @@ KERNEL_FAMILIES = (
     ('K9 qk-LN+RoPE', ('qk_ln_rope',)),
     ('K10 LayerNorm', ('star_ln_kernel',)),
     ('K11 residual add + LayerNorm', ('star_resid_ln_kernel',)),
+    ('K12 GEGLU', ('geglu_kernel',)),
     ('GEMMs and library convs', ('nvjet', 'gemm', 'gemv', 'xmma', 'cutlass',
                                  'convolve', 'cudnn')),
     ('reductions', ('reduce_kernel',)),
@@ -2279,6 +2380,7 @@ def run_train(dev, models, profile: str | None = None) -> dict:
                 f'{missing}'
             assert_launches(f'train step {i}', counts, {
                 **LN_PER_TRAIN_STEP, **ATTN_PER_TRAIN_STEP,
+                **GEGLU_PER_TRAIN_STEP,
                 # forward and remat recompute, and the decode of pred-x0
                 'fused_gn_silu_tconv3': 2 * K5_PER_CFG_STEP
                 + 2 * K5_PER_DECODE,
@@ -2394,6 +2496,7 @@ def run_train_dropout(dev, models) -> dict:
             assert m['grad_norm'] > 0, m
             assert_launches(f'dropout train step {i}', counts, {
                 **LN_PER_TRAIN_STEP, **ATTN_PER_TRAIN_STEP,
+                **GEGLU_PER_TRAIN_STEP,
                 'fused_gn_silu_tconv3': DROPOUT_K5_PER_TRAIN_STEP,
                 'conv3x3': 2 * K6_PER_DECODE,
                 'upsample_conv2x': K7_PER_TRAIN_STEP})
@@ -2430,6 +2533,7 @@ def run_train_dropout(dev, models) -> dict:
 SR_CLI_STEP_LAUNCHES = {
     'fused_ln': LN_PER_TRAIN_STEP['fused_ln'] + LN_PER_TEXT_ENCODE,
     'fused_resid_ln': LN_PER_TRAIN_STEP['fused_resid_ln'],
+    **GEGLU_PER_TRAIN_STEP,
     'flash_packed_lse': ATTN_PER_TRAIN_STEP['flash_packed_lse'],
     'flash_bwd': ATTN_PER_TRAIN_STEP['flash_bwd'],
     'flash_d512': ATTN_PER_TRAIN_STEP['flash_d512'] + 2,

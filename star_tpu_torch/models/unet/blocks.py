@@ -7,7 +7,8 @@ temporal stream [B, F, H*W, C]. Attention goes through ops.attention
 cross-attention), frame attention through K4, the temporal conv chain
 through the fused GN+SiLU+tconv kernel K5 with threaded statistics, and
 the transformer streams' LayerNorms through K10 (the TemporalLIEM-gated
-norm1) and K11 (each attention's residual add fused with the next norm).
+norm1) and K11 (each attention's residual add fused with the next norm),
+and each feed-forward's GEGLU through K12.
 
 Dropout (`deterministic=False`, training only): ResBlock drops before its
 out_conv, and TemporalConvBlockV2 leaves K5 for the unfused chain (GN,
@@ -25,6 +26,7 @@ from torch import nn
 from ...ops.attention import dot_product_attention_packed
 from ...ops.fused_temporal_conv import fused_gn_silu_tconv3
 from ...ops.fused_ln import fused_ln, fused_resid_ln
+from ...ops.geglu import geglu
 from ...ops.norms import gated_layer_norm, group_norm
 from ...ops.temporal_attention import temporal_attention
 from ...ops.temporal_conv import temporal_conv3
@@ -113,6 +115,8 @@ class Attention(nn.Module):
 
 
 class FeedForwardGEGLU(nn.Module):
+    """GEGLU MLP, mult=4: proj, K12 (ops/geglu.py), out."""
+
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
@@ -120,9 +124,7 @@ class FeedForwardGEGLU(nn.Module):
         self.out = nn.Linear(inner, dim)
 
     def forward(self, x):
-        h, gate = self.proj(x).chunk(2, dim=-1)
-        h = h * F.gelu(gate.float(), approximate='tanh').to(h.dtype)
-        return self.out(h)
+        return self.out(geglu(self.proj(x)))
 
 
 class SpatialLIEM(nn.Module):

@@ -77,6 +77,8 @@ _SIGNATURES = {
     # y, resid, scale, bias, gate_w (or null), params bf16, out, xr, rows,
     # C, eps, stream
     'star_fused_resid_ln': [P, P, P, P, P, I, P, P, L, I, Fl, P],
+    # p [rows, 2*inner], out [rows, inner], rows, inner, stream
+    'star_geglu': [P, P, L, I, P],
 }
 
 

@@ -1031,9 +1031,11 @@ def test_unet_transformer_blocks_reach_k10_and_k11(monkeypatch, block):
     """On CUDA tensors: a TemporalTransformerBlock runs K10 gated (norm1),
     K11 gated with the residual (norm2) and K11 with the residual (norm3);
     a SpatialTransformerBlock K11 twice (norm2, norm3), the first at the
-    half batch under cfg_split. No plain version of either."""
+    half batch under cfg_split. No plain version of either. Each block's
+    feed-forward then runs K12 once, on the whole batch."""
     fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
     ta = importlib.import_module('star_tpu_torch.ops.temporal_attention')
+    gg = importlib.import_module('star_tpu_torch.ops.geglu')
     from star_tpu_torch.models.unet.blocks import (SpatialTransformerBlock,
                                                    TemporalTransformerBlock)
     calls = []
@@ -1045,12 +1047,18 @@ def test_unet_transformer_blocks_reach_k10_and_k11(monkeypatch, block):
                         gw: (calls.append(('k11', gw is not None,
                                            y.shape[0])), (y, y + r))[1])
     monkeypatch.setattr(ta, '_launch', lambda q, k, v, h, scale: q)
+    monkeypatch.setattr(gg, 'geglu_plain', _refuse)
+    monkeypatch.setattr(gg, '_launch', lambda p, inner: (
+        calls.append(('k12', p.shape[-1] == 2 * inner,
+                      p.numel() // p.shape[-1] // p.shape[-2])),
+        p[..., :inner])[1])
     with torch.no_grad():
         if block == 'temporal':
             m = TemporalTransformerBlock(64, 1, 64)
             out = m(_fake(torch.randn(2, 4, 6, 64)))
             assert out.shape == (2, 4, 6, 64)
-            want = [('k10', True, 2), ('k11', True, 2), ('k11', False, 2)]
+            want = [('k10', True, 2), ('k11', True, 2), ('k11', False, 2),
+                    ('k12', True, 2 * 4)]
         else:
             split = block == 'spatial_cfg_split'
             m = SpatialTransformerBlock(64, 1, 64, 32)
@@ -1058,7 +1066,8 @@ def test_unet_transformer_blocks_reach_k10_and_k11(monkeypatch, block):
                     torch.randn(6 if split else 3, 7, 32), 3, 4,
                     cfg_split=split)
             assert out.shape == (6 if split else 3, 12, 64)
-            want = [('k11', False, 3), ('k11', False, 6 if split else 3)]
+            want = [('k11', False, 3), ('k11', False, 6 if split else 3),
+                    ('k12', True, 6 if split else 3)]
     assert calls == want
 
 

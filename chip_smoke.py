@@ -10,7 +10,9 @@
    conv, K7 fused nearest-2x+3x3 conv, K8 2x2 phase interleave, K9 fused
    qk-LayerNorm+RoPE and its backward, K10 LayerNorm (optionally
    LIEM-gated), K11 residual add + LayerNorm, K12 the UNet's GEGLU (bit
-   for bit but for the GELU's last bit); K1 also at the CogVideoX
+   for bit but for the GELU's last bit), K13 GroupNorm (its statistics
+   against float64 sums, its apply bit for bit given the same
+   coefficients, with and without the SiLU); K1 also at the CogVideoX
    DiT's 48 heads, 9680 tokens, dead key tail and prescaled q, and at the
    edges of its tiles;
    K2 `with_l` and K3 also at the DiT's 9680 tokens and 48 heads; K10 and
@@ -103,7 +105,8 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 MAIN_PATH_KERNELS = ('flash_packed', 'flash_d512', 'temporal_attention',
                      'fused_gn_silu_tconv3', 'conv3x3', 'upsample_conv2x',
-                     'fused_ln', 'fused_resid_ln', 'geglu')
+                     'fused_ln', 'fused_resid_ln', 'geglu', 'group_norm',
+                     'gn_stats')
 # K10 and K11 launches, from the models' structure. One UNet+ControlNet
 # call runs 25 temporal transformer blocks (K10 gated at norm1, K11 at
 # norm2 and norm3) and 23 spatial ones (K11 at norm2 and norm3; the two at
@@ -130,6 +133,70 @@ GEGLU_PER_TRAIN_STEP = {'geglu': 2 * GEGLU_PER_CFG_STEP['geglu']}
 # the shapes K12 is timed at (PERF.md §6): one a level
 GEGLU_TIMED_SHAPES = ((230400, 1280), (57600, 2560), (14720, 5120),
                       (3840, 5120))
+# K13 launches by shape, from the models' structure (derived on the CPU
+# from the full-depth models at narrow widths and held there by
+# tests/test_torch_group_norm.py). A UNet+ControlNet CFG call runs 113
+# GroupNorms (64 ResBlock norms and the head norm with the SiLU fused, 48
+# transformer norms without), each one statistics launch and one apply,
+# by (N, R, C, silu) of x [N, R, C]: per frame at 16 frames (8 for the
+# ControlNet's first level), per video at N = 2 for the temporal
+# transformers (1 for the ControlNet's first); and 32 statistics alone,
+# the first stages of its temporal conv blocks (K5 threads the rest), by
+# (N, R, C).
+GN_PER_CFG_CALL = {
+    (16, 14400, 320, True): 8, (16, 14400, 320, False): 5,
+    (8, 14400, 320, True): 4, (8, 14400, 320, False): 2,
+    (2, 115200, 320, False): 7, (1, 115200, 320, False): 2,
+    (16, 14400, 640, True): 2, (16, 14400, 960, True): 1,
+    (16, 3600, 320, True): 2, (16, 3600, 640, True): 9,
+    (16, 3600, 640, False): 7, (16, 3600, 960, True): 1,
+    (16, 3600, 1280, True): 1, (16, 3600, 1920, True): 1,
+    (2, 28800, 640, False): 7,
+    (16, 920, 640, True): 2, (16, 920, 1280, True): 9,
+    (16, 920, 1280, False): 7, (16, 920, 1920, True): 1,
+    (16, 920, 2560, True): 2, (2, 7360, 1280, False): 7,
+    (16, 240, 1280, True): 19, (16, 240, 1280, False): 2,
+    (16, 240, 2560, True): 3, (2, 1920, 1280, False): 2}
+GN_STATS_PER_CFG_CALL = {(2, 115200, 320): 5, (1, 115200, 320): 2,
+                         (2, 28800, 640): 7, (2, 7360, 1280): 7,
+                         (2, 1920, 1280): 11}
+GN_PER_CFG_STEP = {
+    'group_norm': sum(GN_PER_CFG_CALL.values()),                  # 113
+    'gn_stats': sum(GN_PER_CFG_CALL.values())
+    + sum(GN_STATS_PER_CFG_CALL.values())}                        # 145
+# a causal-VAE encode of 25 frames of 480x720 (the Cog train step's two):
+# 29 GroupNorms with the SiLU, at N = 1, by (R, C)
+GN_PER_CAUSAL_ENCODE = {(8640000, 128): 6, (1123200, 128): 1,
+                        (1123200, 256): 5, (151200, 256): 6,
+                        (37800, 256): 1, (37800, 512): 10}
+GN_PER_COG_TRAIN_STEP = {'group_norm': 2 * 29, 'gn_stats': 2 * 29}
+# a window of the causal VAE's serial decode: 37 GroupNorms without the
+# SiLU, inside SpatialNorm3D (two a block of the decoder's mid and up
+# blocks, and its norm_out)
+GN_PER_DECODE_WINDOW = 37
+
+
+def cog_gn_launches(encodes: int, windows: int) -> dict:
+    """K13's launches in a CogVideoX clip of `encodes` causal-VAE
+    encodes and `windows` decode windows (a Cog SR clip: 1 and 3, the 7
+    latent frames in windows [0:3], [3:5], [5:7]; a T2V clip: 0 and 6)."""
+    n = (encodes * sum(GN_PER_CAUSAL_ENCODE.values())
+         + windows * GN_PER_DECODE_WINDOW)
+    return {'group_norm': n, 'gn_stats': n}
+# the SVD VAE: an encode runs the mid attention's GroupNorm and five K6
+# stages that start without threaded statistics; a decoder call the mid
+# attention's and two such stages
+GN_PER_VAE_ENCODE = {'group_norm': 1, 'gn_stats': 1 + 5}
+GN_PER_DECODE_CALL = {'group_norm': 1, 'gn_stats': 1 + 2}
+# a train step's UNet+ControlNet, forward and remat recompute (the head
+# norm runs once), under autograd: K13 forward, the plain version in the
+# backward, which also recomputes K5's statistics from x
+GN_PER_TRAIN_UNET = {'group_norm': 2 * 113 - 1,
+                     'gn_stats': 2 * 113 - 1 + 2 * 32}
+# the shapes K13 is timed at (PERF.md §6): (N, R, C, silu)
+GN_TIMED_SHAPES = ((16, 14400, 320, True), (16, 14400, 320, False),
+                   (16, 920, 2560, True), (1, 8640000, 128, True),
+                   (1, 1123200, 256, True))
 LN_PER_DIT_STEP = {'fused_ln': 42 * 3 + 2}
 # the kernels of one DiT call, SR or stock (42 layers: K9 on q and on k,
 # K1 once, K10 three times; and the two final norms)
@@ -243,6 +310,24 @@ def geglu_work(rows, inner) -> tuple[float, float]:
     return 12.0 * n, 6.0 * n
 
 
+def gn_work(n, r, c, silu=True) -> tuple[float, float]:
+    """K13's FLOPs (about 4 a value for the statistics, 4 for the apply,
+    about 12 more for the SiLU) and bytes (x read by each pass, y written:
+    6 a value) on x [n, r, c]."""
+    v = n * r * c
+    return (20.0 if silu else 8.0) * v, 6.0 * v
+
+
+def gn_bound_ms(table: dict, stats_table: dict = None) -> float:
+    """The bound of K13's launches in a table of GN_PER_CFG_CALL's keys,
+    and of the statistics alone (2 bytes a value) in one of
+    GN_STATS_PER_CFG_CALL's."""
+    total = sum(k * bound_ms(*gn_work(*key))[0] for key, k in table.items())
+    for (n, r, c), k in (stats_table or {}).items():
+        total += k * bound_ms(4.0 * n * r * c, 2.0 * n * r * c)[0]
+    return total
+
+
 def bound_sum_ms(kind: str, *tables: dict) -> float:
     """Sum over shapes of launches x bound (bound_ms) of K5, K6 or K7."""
     total = 0.0
@@ -287,7 +372,7 @@ TRAIN_COG_FREQ_ROW_KEYS = TRAIN_COG_ROW_KEYS | {'loss_low', 'loss_high'}
 TRAIN_PATH_KERNELS = ('flash_packed_lse', 'flash_bwd', 'flash_d512',
                       'temporal_attention', 'fused_gn_silu_tconv3',
                       'conv3x3', 'upsample_conv2x', 'fused_ln',
-                      'fused_resid_ln', 'geglu')
+                      'fused_resid_ln', 'geglu', 'group_norm', 'gn_stats')
 
 
 def log(msg: str) -> None:
@@ -604,6 +689,7 @@ def check_kernels(dev) -> dict[str, dict]:
     check_k9_backward(dev, g, record, results)
     check_ln_kernels(dev, g, record, results)
     check_geglu(dev, record, results)
+    check_group_norm(dev, record, results)
     return results
 
 
@@ -1298,6 +1384,159 @@ def check_geglu(dev, record, results) -> None:
     torch.cuda.synchronize()
 
 
+def gn_inputs(n, r, c, dev, g):
+    """x [n, r, c] bf16 with a mean and spread of its own in each channel
+    (so that mean and variance both matter), scale and bias bf16 [c]."""
+    import torch
+    mu = torch.randn(n, 1, c, generator=g, device=dev)
+    sd = torch.rand(n, 1, c, generator=g, device=dev) * 2 + 0.25
+    x = torch.empty(n, r, c, device=dev, dtype=torch.bfloat16)
+    for i in range(n):      # in steps, so that no fp32 copy of x is made
+        x[i] = (torch.randn(r, c, generator=g, device=dev) * sd[i]
+                + mu[i]).to(torch.bfloat16)
+    scale = (1 + 0.5 * torch.randn(c, generator=g, device=dev)).to(
+        torch.bfloat16)
+    bias = (0.5 * torch.randn(c, generator=g, device=dev)).to(
+        torch.bfloat16)
+    return x, scale, bias
+
+
+def gn_stats_err(x3, st) -> float:
+    """K13's statistics against float64 sums: the largest error of the
+    sum relative to the channel's sum of |x|, and of the sum of squares
+    relative to itself."""
+    import torch
+    err = 0.0
+    for i in range(x3.shape[0]):       # a float64 copy of one n at a time
+        xd = x3[i].double()
+        s, a1, s2 = xd.sum(0), xd.abs().sum(0), xd.square().sum(0)
+        err = max(err, ((st[0][i].double() - s).abs() / a1).max().item(),
+                  ((st[1][i].double() - s2).abs() / s2).max().item())
+        del xd
+    return err
+
+
+def gn_apply_eager(x3, mean, a, b, silu):
+    """group_norm_plain's apply given bf16 coefficients [N, C]: the
+    broadcast bf16 passes, then silu32's expression."""
+    import torch.nn.functional as F
+    y = (x3 - mean[:, None]) * a[:, None] + b[:, None]
+    return F.silu(y.float()).to(y.dtype) if silu else y
+
+
+def gn_ulps(out, ref) -> tuple[int, float]:
+    """Values of `out` that differ from `ref`, and the largest difference
+    in bf16 ulps at the value's scale: the spacing of bf16 at the larger of
+    |ref| and the RMS of ref over the tensor (a value near zero moves with
+    its group's mean, which is of the output's size, not its own)."""
+    import torch
+    diff = out != ref
+    n = int(diff.sum())
+    if n == 0:
+        return 0, 0.0
+    rms = torch.linalg.vector_norm(ref.float()).item() / ref.numel() ** 0.5
+    r = ref[diff].float()
+    spacing = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(rms))) - 7)
+    return n, ((out[diff].float() - r).abs() / spacing).max().item()
+
+
+# K13's whole GroupNorm against the plain version: its statistics are
+# summed in another order than PyTorch's reductions, so where a group's
+# fp32 mean or a lies at a bf16 rounding boundary the two round the
+# coefficient to neighbouring values, and the group's values move by up to
+# that coefficient's last bit times their spread. Measured on an H100:
+# 3.2e-05 of the values at [16,920,2560] with the SiLU, by at most 4 ulps
+# at their scale (gn_ulps), none at the other timed shapes; held with a
+# margin of 30x and 2x
+GN_DIFF_SHARE, GN_DIFF_ULPS = 1e-3, 8.0
+
+
+def check_group_norm(dev, record, results) -> None:
+    """K13 at the timed shapes (GN_TIMED_SHAPES) and at ragged ones: its
+    statistics against float64 sums (to 1e-6), its apply given the same
+    coefficients bit for bit against the eager passes, the whole
+    group_norm against group_norm_plain (GN_DIFF_SHARE, GN_DIFF_ULPS), and
+    two runs bit for bit. Timed at each timed shape beside the plain
+    version and, as the library yardstick, F.group_norm (+ F.silu) on the
+    channels-last view."""
+    import torch
+    import torch.nn.functional as F
+    from star_tpu_torch.ops import norms
+    g = torch.Generator(device=dev).manual_seed(13)
+    shapes = []
+    cases = (*GN_TIMED_SHAPES, (3, 1001, 8, True), (2, 77, 40, False),
+             (5, 3, 2560, True), (1, 999, 1920, True))
+    for n, r, c, silu in cases:
+        groups = 32 if c % 32 == 0 else c // 8
+        x, scale, bias = gn_inputs(n, r, c, dev, g)
+        what = f'K13 [{n},{r},{c}]{" +SiLU" if silu else ""}'
+        st = norms._launch_stats(x)
+        st_err = gn_stats_err(x, st)
+        del st
+        coeffs = norms._launch_stats(x, (scale, bias, groups, 1e-6))
+        out = norms._launch_apply(x, *coeffs, silu)
+        same = torch.equal(out, gn_apply_eager(x, *coeffs, silu))
+        del coeffs
+        ref = norms.group_norm_plain(x, scale, bias, groups, 1e-6, silu)
+        n_diff, max_ulps = gn_ulps(out, ref)
+        agree = agrees(what, [(out, ref)])
+        again = norms.group_norm(x, scale, bias, groups, 1e-6, silu)
+        repeat = torch.equal(again, out)
+        share = n_diff / out.numel()
+        log(f'{what}: statistics {st_err:.2e} of float64; apply given the '
+            f'coefficients bit for bit {same}; {n_diff} of {out.numel()} '
+            f'values off the plain version ({share:.2e}), at most '
+            f'{max_ulps:.2f} ulps; second run bit for bit {repeat}')
+        assert st_err <= 1e-6, (what, st_err)
+        assert same, f'{what}: the apply differs from the eager passes'
+        assert share <= GN_DIFF_SHARE and max_ulps <= GN_DIFF_ULPS, (
+            what, share, max_ulps)
+        assert repeat, f'{what}: two runs differ'
+        del again, ref, out
+        if (n, r, c, silu) not in GN_TIMED_SHAPES:
+            del x
+            continue
+        xv = x.permute(0, 2, 1)          # [N, C, R], channels-last strides
+
+        def library():
+            y = F.group_norm(xv, groups, scale, bias, 1e-6)
+            return F.silu(y) if silu else y
+        ms = cuda_ms(lambda: norms.group_norm(x, scale, bias, groups, 1e-6,
+                                              silu), reps=10, graph=True)
+        fold = (scale, bias, groups, 1e-6)
+        coeffs = norms._launch_stats(x, fold)
+        stats_ms = cuda_ms(lambda: norms._launch_stats(x, fold), reps=10,
+                           graph=True)
+        apply_ms = cuda_ms(lambda: norms._launch_apply(x, *coeffs, silu),
+                           reps=10, graph=True)
+        y = torch.empty_like(x)
+        copy_ms = cuda_ms(lambda: y.copy_(x), reps=10, graph=True)
+        del y, coeffs
+        plain_ms = cuda_ms(lambda: norms.group_norm_plain(
+            x, scale, bias, groups, 1e-6, silu), reps=3)
+        lib_ms = cuda_ms(library, reps=5)
+        work = gn_work(n, r, c, silu)
+        shape = [n, r, c, 'silu' if silu else 'no silu']
+        if not shapes:
+            record('group_norm', 'cuda', 'star_tpu_torch/csrc/group_norm.cu',
+                   'none: XLA fuses star_tpu/models/unet/blocks.py:419-427',
+                   agree, ms, plain_ms, *work, lib_ms, shape)
+        shapes.append(sub_record(shape, agree, ms, plain_ms, *work, lib_ms,
+                                 stats_err=st_err, values_off=n_diff,
+                                 max_ulps=max_ulps, stats_ms=stats_ms,
+                                 apply_ms=apply_ms, copy_ms=copy_ms,
+                                 pct_of_bound=100 * bound_ms(*work)[0] / ms))
+        log(f'{what}: {100 * bound_ms(*work)[0] / ms:.1f}% of its bound, '
+            f'{lib_ms / ms:.2f}x faster than the library; statistics '
+            f'{stats_ms:.4f} ms, apply {apply_ms:.4f} ms, a copy of x '
+            f'{copy_ms:.4f} ms')
+        del x, xv
+    results['group_norm'].update(
+        shapes=shapes, library='F.group_norm (+ F.silu) on the channels-last '
+        'view [N, C, R]')
+    torch.cuda.synchronize()
+
+
 # --------------------------------------------------------------------------
 # phase 2b: small models, kernels on the card vs plain versions on the host
 
@@ -1811,7 +2050,7 @@ class MemoryVideos:
 
 
 def clip_launches(unet_calls: int, text_encodes: int) -> dict:
-    """The exact launches of K2 d=512, K5-K7 and K10-K12 in one I2VGen
+    """The exact launches of K2 d=512, K5-K7 and K10-K13 in one I2VGen
     clip of 8 frames of 180x320 with `unet_calls` UNet calls and
     `text_encodes` CLIP encodes: two in a fresh pipeline (the prompt and
     the negative one), none for a prompt in the pipeline's text cache."""
@@ -1821,6 +2060,8 @@ def clip_launches(unet_calls: int, text_encodes: int) -> dict:
         + text_encodes * LN_PER_TEXT_ENCODE,
         'fused_resid_ln': n * LN_PER_CFG_STEP['fused_resid_ln'],
         'geglu': n * GEGLU_PER_CFG_STEP['geglu'],
+        **{k: n * GN_PER_CFG_STEP[k] + GN_PER_VAE_ENCODE[k]
+           + 2 * GN_PER_DECODE_CALL[k] for k in GN_PER_CFG_STEP},
         'flash_d512': D512_PER_CLIP,
         'fused_gn_silu_tconv3': n * K5_PER_CFG_STEP + 2 * K5_PER_DECODE,
         'conv3x3': K6_PER_ENCODE + 2 * K6_PER_DECODE,
@@ -2060,14 +2301,16 @@ def time_cfg_step(dev, models, profile: str | None) -> dict:
         log(f'CFG UNet+ControlNet step [8f, 90x160, cfg_pair, bf16]: '
             f'{ms:.1f} ms; launches per step {per_step}')
         assert_launches('CFG step', per_step, {
-            **LN_PER_CFG_STEP, **GEGLU_PER_CFG_STEP,
+            **LN_PER_CFG_STEP, **GEGLU_PER_CFG_STEP, **GN_PER_CFG_STEP,
             'fused_gn_silu_tconv3': K5_PER_CFG_STEP})
         if profile:
             res['profile'] = profile_step(step, profile, bounds={
                 'K5 fused GN+SiLU+tconv': bound_sum_ms('k5', unet_k5(2)),
                 'K12 GEGLU': sum(n * bound_ms(*geglu_work(*shape))[0]
                                  for shape, n in
-                                 GEGLU_PER_CFG_CALL.items())})
+                                 GEGLU_PER_CFG_CALL.items()),
+                'K13 GroupNorm': gn_bound_ms(GN_PER_CFG_CALL,
+                                             GN_STATS_PER_CFG_CALL)})
     return res
 
 
@@ -2086,6 +2329,8 @@ KERNEL_FAMILIES = (
     ('K10 LayerNorm', ('star_ln_kernel',)),
     ('K11 residual add + LayerNorm', ('star_resid_ln_kernel',)),
     ('K12 GEGLU', ('geglu_kernel',)),
+    ('K13 GroupNorm', ('gn_partials_kernel', 'gn_fold_kernel',
+                       'gn_apply_kernel')),
     ('GEMMs and library convs', ('nvjet', 'gemm', 'gemv', 'xmma', 'cutlass',
                                  'convolve', 'cudnn')),
     ('reductions', ('reduce_kernel',)),
@@ -2381,6 +2626,8 @@ def run_train(dev, models, profile: str | None = None) -> dict:
             assert_launches(f'train step {i}', counts, {
                 **LN_PER_TRAIN_STEP, **ATTN_PER_TRAIN_STEP,
                 **GEGLU_PER_TRAIN_STEP,
+                **{k: v + 2 * GN_PER_DECODE_CALL[k]
+                   for k, v in GN_PER_TRAIN_UNET.items()},
                 # forward and remat recompute, and the decode of pred-x0
                 'fused_gn_silu_tconv3': 2 * K5_PER_CFG_STEP
                 + 2 * K5_PER_DECODE,
@@ -2529,11 +2776,14 @@ def run_train_dropout(dev, models) -> dict:
 
 
 # one train_sr step's kernels: phase 5's train step, the VAE encodes of gt
-# and lq (8 frames of 720x1280: K6 and K2 d=512 each) and one CLIP encode
+# and lq (8 frames of 720x1280: K6, K13 and K2 d=512 each) and one CLIP
+# encode
 SR_CLI_STEP_LAUNCHES = {
     'fused_ln': LN_PER_TRAIN_STEP['fused_ln'] + LN_PER_TEXT_ENCODE,
     'fused_resid_ln': LN_PER_TRAIN_STEP['fused_resid_ln'],
     **GEGLU_PER_TRAIN_STEP,
+    **{k: v + 2 * GN_PER_DECODE_CALL[k] + 2 * GN_PER_VAE_ENCODE[k]
+       for k, v in GN_PER_TRAIN_UNET.items()},
     'flash_packed_lse': ATTN_PER_TRAIN_STEP['flash_packed_lse'],
     'flash_bwd': ATTN_PER_TRAIN_STEP['flash_bwd'],
     'flash_d512': ATTN_PER_TRAIN_STEP['flash_d512'] + 2,
@@ -2749,6 +2999,7 @@ def run_cog(dev) -> dict:
     assert float(out.std()) > 0.0, 'constant output'
     assert len(dit_calls) == 50, len(dit_calls)
     want = {k: COG_PATH_LAUNCHES.get(k, 0) for k in launches}
+    want.update(cog_gn_launches(1, 3))
     assert launches == want, f'Cog clip launches {launches}, want {want}'
     return dict(models=models, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), dit_calls=len(dit_calls),
@@ -2851,6 +3102,7 @@ def run_t2v(dev, models) -> dict:
     assert float(out.std()) > 0.0, 'constant output'
     assert len(dit_calls) == 50, len(dit_calls)
     want = {k: COG_PATH_LAUNCHES.get(k, 0) for k in launches}
+    want.update(cog_gn_launches(0, 6))
     assert launches == want, f'T2V clip launches {launches}, want {want}'
     return dict(dit=dit, launches=launches, clip_s=clip_s,
                 stages=dict(pipe.stage_seconds), dit_calls=len(dit_calls),
@@ -2868,7 +3120,9 @@ def run_t2v(dev, models) -> dict:
 # layer in the backward, the two final norms once; T5 and the causal VAE
 # launch none, and no K1 runs under grad (tests/test_torch_cog_train.py
 # derives these on the CPU). K9's backward kernel launches once a backward
-# call, one for each of K9's forward launches outside the recompute.
+# call, one for each of K9's forward launches outside the recompute. K13
+# runs in the two causal-VAE encodes (GN_PER_COG_TRAIN_STEP; the frequency
+# loss's decode adds its own).
 COG_TRAIN_STEP_LAUNCHES = {'qk_ln_rope': 2 * 84, 'qk_ln_rope_bwd': 84,
                            'flash_packed_lse': 2 * 42, 'flash_bwd': 42,
                            'fused_ln': 2 * 42 * 3 + 2, 'flash_packed': 0}
@@ -2991,7 +3245,7 @@ def run_train_cog_cli(dev, models, profile: str | None = None) -> dict:
         assert all(math.isfinite(v) for v in row.values()), row
         assert row['grad_norm'] > 0, row
         assert_launches(f'Cog train step {i + 1}', c,
-                        COG_TRAIN_STEP_LAUNCHES)
+                        {**COG_TRAIN_STEP_LAUNCHES, **GN_PER_COG_TRAIN_STEP})
         assert b == COG_TRAIN_K9_BACKWARDS, (i, b)
     frozen_changed = [n for n, p in named.items() if n not in state.params
                       and fingerprint(p) != before[n]]
@@ -3047,9 +3301,12 @@ def run_train_cog_cli(dev, models, profile: str | None = None) -> dict:
                 loop_s=frows[0]['sec_per_step'], row=frows[0])
     assert set(frows[0]) == TRAIN_COG_FREQ_ROW_KEYS, sorted(frows[0])
     assert all(math.isfinite(v) for v in frows[0].values()), frows[0]
-    # the decode launches no kernel: the same launches as without it
-    assert_launches('Cog train step with the frequency loss', fcounts[0],
-                    COG_TRAIN_STEP_LAUNCHES)
+    # the decode (one window, outside autograd) launches no kernel but
+    # K13: the same others as without it, and K13 a window's more
+    assert_launches('Cog train step with the frequency loss', fcounts[0], {
+        **COG_TRAIN_STEP_LAUNCHES,
+        **{k: v + GN_PER_DECODE_WINDOW
+           for k, v in GN_PER_COG_TRAIN_STEP.items()}})
     assert fbacks[0] == COG_TRAIN_K9_BACKWARDS
     log(f'Cog train step with the frequency loss ({freq["frames"]} frames, '
         f'one-window decode): loop {freq["loop_s"]:.3f} s, peak '

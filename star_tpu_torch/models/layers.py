@@ -35,16 +35,17 @@ class NormParams(nn.Module):
 
 class GroupNorm(NormParams):
     """Channels-last GroupNorm with fp32 statistics over every non-batch
-    axis ([BF, H, W, C] -> per frame, [B, F, H, W, C] -> per video)."""
+    axis ([BF, H, W, C] -> per frame, [B, F, H, W, C] -> per video), the
+    SiLU after it with `silu`: kernel K13 on the card (ops/norms.py)."""
 
     def __init__(self, channels: int, num_groups: int = 32,
                  eps: float = 1e-5):
         super().__init__(channels)
         self.num_groups, self.eps = num_groups, eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, self.num_groups,
-                          self.eps)
+                          self.eps, silu=silu)
 
 
 class LayerNorm(NormParams):

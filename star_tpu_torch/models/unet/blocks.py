@@ -299,7 +299,7 @@ class TemporalConvBlockV2(nn.Module):
             y = identity
             for i, n in enumerate(self.names):
                 gn, cv = getattr(self, f'{n}_norm'), getattr(self, n)
-                y = silu32(group_norm(y, gn.weight, gn.bias))
+                y = group_norm(y, gn.weight, gn.bias, silu=True)
                 if i > 0:
                     y = dropout(y, self.dropout, masks, self.dropout_site,
                                 i - 1)
@@ -339,9 +339,9 @@ class ResBlock(nn.Module):
                 masks: DropoutMasks | None = None):
         """masks: the forward's DropoutMasks when dropout is active."""
         bf, hh, ww, _ = x.shape
-        h = self.in_conv(silu32(self.in_norm(x)))
+        h = self.in_conv(self.in_norm(x, silu=True))
         h = h + self.emb_proj(silu32(emb))[:, None, None, :]
-        h = silu32(self.out_norm(h))
+        h = self.out_norm(h, silu=True)
         if masks is not None and self.dropout > 0:
             h = dropout(h, self.dropout, masks, self.dropout_site, 0)
         h = self.out_conv(h)

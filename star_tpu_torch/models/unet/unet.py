@@ -36,7 +36,7 @@ from ...utils.profiling import spanned
 from ..layers import Conv2d, GroupNorm, zero_
 from .blocks import (DropoutMasks, Downsample, ResBlock, SpatialTransformer,
                      TemporalTransformer, Upsample, name_dropout_sites,
-                     silu32, sinusoidal_embedding)
+                     sinusoidal_embedding)
 
 
 class VideoUNetTrunk(nn.Module):
@@ -220,7 +220,7 @@ class VideoUNetTrunk(nn.Module):
                     x = getattr(self, f'dec_{i}_up')(x)
                     scale *= 2.0
 
-        x = self.head_conv(silu32(self.head_norm(x)))
+        x = self.head_conv(self.head_norm(x, silu=True))
         if state['split_pending']:   # cfg_pair with no cross-attn: tile late
             x = torch.cat([x, x], dim=0)
         return x.reshape(-1, f, hh, ww, self.out_channels)

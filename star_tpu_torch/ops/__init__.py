@@ -15,20 +15,23 @@ wrappers, their plain PyTorch versions and launch counters:
                         (residual add + [LIEM gate +] LayerNorm)
   geglu                 K12 (the UNet's GEGLU: tanh GELU of the gate times
                         h, one pass)
+  norms                 K13 (GroupNorm: a statistics pass, which also
+                        serves conv3x3.channel_stats, and an apply with
+                        the SiLU optionally fused)
 
-K1/K2-d64 (with K3), K4, K5, K9, K10, K11 and K12 are differentiable through
-torch.autograd.Function (K3 and K9's backward kernel are their backwards
-on the card; the others recompute their plain versions); K2-d512, K6, K7
-and K8 have no backward and raise under grad.
+K1/K2-d64 (with K3), K4, K5, K9, K10, K11, K12 and K13 are differentiable
+through torch.autograd.Function (K3 and K9's backward kernel are their
+backwards on the card; the others recompute their plain versions);
+K2-d512, K6, K7 and K8 have no backward and raise under grad.
 """
 
 from . import (conv3x3, flash_attention, fused_ln, fused_temporal_conv,
-               geglu, qk_ln_rope, temporal_attention, upsample_conv)
+               geglu, norms, qk_ln_rope, temporal_attention, upsample_conv)
 
 KERNELS = ('flash_packed', 'flash_packed_lse', 'flash_bwd', 'flash_d512',
            'temporal_attention', 'fused_gn_silu_tconv3', 'conv3x3',
            'upsample_conv2x', 'interleave2x2', 'qk_ln_rope', 'qk_ln_rope_bwd',
-           'fused_ln', 'fused_resid_ln', 'geglu')
+           'fused_ln', 'fused_resid_ln', 'geglu', 'group_norm', 'gn_stats')
 
 
 def launch_counts() -> dict[str, int]:
@@ -46,7 +49,9 @@ def launch_counts() -> dict[str, int]:
             'qk_ln_rope_bwd': qk_ln_rope.BWD_LAUNCHES,
             'fused_ln': fused_ln.LN_LAUNCHES,
             'fused_resid_ln': fused_ln.RESID_LN_LAUNCHES,
-            'geglu': geglu.LAUNCHES}
+            'geglu': geglu.LAUNCHES,
+            'group_norm': norms.LAUNCHES,
+            'gn_stats': norms.STATS_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -66,3 +71,5 @@ def reset_launch_counts() -> None:
     fused_ln.LN_LAUNCHES = 0
     fused_ln.RESID_LN_LAUNCHES = 0
     geglu.LAUNCHES = 0
+    norms.LAUNCHES = 0
+    norms.STATS_LAUNCHES = 0

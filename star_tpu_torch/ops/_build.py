@@ -79,6 +79,12 @@ _SIGNATURES = {
     'star_fused_resid_ln': [P, P, P, P, P, I, P, P, L, I, Fl, P],
     # p [rows, 2*inner], out [rows, inner], rows, inner, stream
     'star_geglu': [P, P, L, I, P],
+    # x, partials, sum, sumsq (or null), scale, bias, params bf16, mean,
+    # a, b (bf16, or null), N, R, C, groups, eps, k, max slabs, SMs, stream
+    'star_gn_stats': [P, P, P, P, P, P, I, P, P, P, L, L, I, I, Fl, I, I, I,
+                      P],
+    # x, mean, a, b, y, N, R, C, k, silu, SMs, stream
+    'star_gn_apply': [P, P, P, P, P, L, L, I, I, I, I, P],
 }
 
 

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import spanned
-from . import _build
+from . import _build, norms
 
 Stats = tuple[torch.Tensor, torch.Tensor]
 
@@ -84,9 +84,13 @@ def conv3x3_launch_plan(n: int, h: int, w: int, c: int, cout: int,
 
 def channel_stats(x: torch.Tensor) -> Stats:
     """Per-(leading, channel) fp32 (sum, sum of squares) over all middle
-    axes: x [N, ..., C] -> ([N, C], [N, C])."""
+    axes: x [N, ..., C] -> ([N, C], [N, C]). K13's statistics pass
+    (ops/norms.py) for a CUDA tensor when no gradient is recorded (raising
+    on one it does not take), else the plain sums."""
     n, c = x.shape[0], x.shape[-1]
     xf = x.reshape(n, -1, c)
+    if xf.is_cuda and not _build.needs_grad(xf):
+        return norms._launch_stats(xf)
     return (torch.sum(xf, dim=1, dtype=torch.float32),
             torch.sum(xf.float().square(), dim=1))
 

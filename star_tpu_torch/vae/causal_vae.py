@@ -67,13 +67,15 @@ class CPMode:
     group: object = None
 
 
-def norm_cp(norm: GroupNorm, x: torch.Tensor,
-            cp: Optional[CPMode]) -> torch.Tensor:
-    """The GroupNorm of x, over the whole clip's real slots under CP."""
+def norm_cp(norm: GroupNorm, x: torch.Tensor, cp: Optional[CPMode],
+            silu: bool = False) -> torch.Tensor:
+    """The GroupNorm of x (then the SiLU with `silu`), over the whole
+    clip's real slots under CP."""
     if cp is None:
-        return norm(x)
-    return cp_slot_group_norm(x, norm.weight, norm.bias, norm.num_groups,
-                              norm.eps, cp.group)
+        return norm(x, silu=silu)
+    y = cp_slot_group_norm(x, norm.weight, norm.bias, norm.num_groups,
+                           norm.eps, cp.group)
+    return silu32(y) if silu else y
 
 
 class CausalConv3d(nn.Conv3d):
@@ -171,14 +173,16 @@ class ResnetBlock3D(nn.Module):
                                           (1, 1, 1))
                              if in_channels != out_channels else None)
 
-    def _norm(self, norm, x, zq, cp):
-        return norm_cp(norm, x, cp) if zq is None else norm(x, zq, cp)
+    def _norm_silu(self, norm, x, zq, cp):
+        if zq is None:
+            return norm_cp(norm, x, cp, silu=True)
+        return silu32(norm(x, zq, cp))
 
     def forward(self, x, zq=None, cache: Optional[ChunkCache] = None,
                 cp: Optional[CPMode] = None):
-        h = silu32(self._norm(self.norm1, x, zq, cp))
+        h = self._norm_silu(self.norm1, x, zq, cp)
         h = self.conv1(h, cache, cp)
-        h = silu32(self._norm(self.norm2, h, zq, cp))
+        h = self._norm_silu(self.norm2, h, zq, cp)
         h = self.conv2(h, cache, cp)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
@@ -270,7 +274,8 @@ class CausalEncoder3D(nn.Module):
             if i != self.n_lv - 1:
                 h = getattr(self, f'down_{i}_downsample')(h, cp)
         h = self.mid_block_2(self.mid_block_1(h, cp=cp), cp=cp)
-        return self.conv_out(silu32(norm_cp(self.norm_out, h, cp)), cp=cp)
+        return self.conv_out(norm_cp(self.norm_out, h, cp, silu=True),
+                             cp=cp)
 
 
 class CausalDecoder3D(nn.Module):

@@ -309,14 +309,17 @@ def _refuse(*a, **k):
 
 @pytest.mark.parametrize('name', ['packed', 'd512', 'temporal', 'tconv',
                                   'conv3x3', 'upsample_conv2x',
-                                  'interleave2x2', 'upsample_phases'])
+                                  'interleave2x2', 'upsample_phases',
+                                  'group_norm', 'channel_stats'])
 def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
     fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
     ta = importlib.import_module('star_tpu_torch.ops.temporal_attention')
     ftc = importlib.import_module('star_tpu_torch.ops.fused_temporal_conv')
     c3 = importlib.import_module('star_tpu_torch.ops.conv3x3')
     uc = importlib.import_module('star_tpu_torch.ops.upsample_conv')
+    nm = importlib.import_module('star_tpu_torch.ops.norms')
     launched = []
+    want = [name]
 
     def launcher(kind, returns_stats):
         def launch(*a, **k):
@@ -338,12 +341,26 @@ def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
             (uc, '_launch_upsample', 'upsample_conv2x', False),
             (uc, '_launch_interleave', 'interleave2x2', False)):
         monkeypatch.setattr(mod, fn, launcher(kind, pair))
+    monkeypatch.setattr(nm, 'group_norm_plain', _refuse)
+    monkeypatch.setattr(nm, '_launch_stats', lambda x3, fold=None: (
+        launched.append('gn_stats'), (x3[:, 0],) * (2 if fold is None
+                                                    else 3))[1])
+    monkeypatch.setattr(nm, '_launch_apply', lambda x3, m, a, b, silu: (
+        launched.append('group_norm'), x3)[1])
     x = _fake(torch.randn(1, 4, 8, 64))
-    if name == 'conv3x3':
+    xb = _fake(torch.randn(2, 4, 8, 64).bfloat16())
+    if name == 'group_norm':            # K13: statistics, then the apply
+        nm.group_norm(xb, torch.ones(64), torch.zeros(64), silu=True)
+        want = ['gn_stats', 'group_norm']
+    elif name == 'channel_stats':       # K13's statistics alone
+        c3.channel_stats(xb)
+        want = ['gn_stats']
+    elif name == 'conv3x3':
         c3.fused_gn_silu_conv3x3(_fake(torch.randn(1, 5, 8, 128)),
                                  torch.ones(128), torch.zeros(128),
                                  torch.zeros(256, 128, 3, 3),
                                  torch.zeros(256), want_stats=True)
+        want = ['gn_stats', 'conv3x3']  # x's statistics, then K6
     elif name == 'upsample_conv2x':     # K7 widths
         uc.upsample_conv2x(_fake(torch.randn(1, 3, 4, 64)),
                            torch.zeros(128, 64, 3, 3), torch.zeros(128))
@@ -352,7 +369,7 @@ def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
     elif name == 'upsample_phases':     # narrow: phase convs, then K8
         uc.upsample_conv2x(_fake(torch.randn(1, 3, 4, 32)),
                            torch.zeros(32, 32, 3, 3), torch.zeros(32))
-        name = 'interleave2x2'
+        want = ['interleave2x2']
     elif name == 'packed':
         fa.flash_attention_packed(_fake(torch.randn(1, 8, 128)),
                                   _fake(torch.randn(1, 8, 128)),
@@ -366,7 +383,8 @@ def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
         ftc.fused_gn_silu_tconv3(x, torch.ones(64), torch.zeros(64),
                                  torch.zeros(3, 1, 64, 64), torch.zeros(64),
                                  want_stats=True)
-    assert launched == [name]
+        want = ['gn_stats', 'tconv']    # x's statistics, then K5
+    assert launched == want
 
 
 @pytest.mark.parametrize('name', ['packed', 'd64', 'temporal', 'tconv'])
@@ -375,10 +393,12 @@ def test_differentiable_kernels_launch_forward_and_backward(monkeypatch,
     """A recorded call on CUDA tensors: K1/K2-d64 launch the lse forward
     and K3 (flash_bwd_plain never runs); K4 and K5 launch their forward
     and run their plain version only inside the backward (the recompute
-    the JAX package also does), K5 through threaded statistics."""
+    the JAX package also does), K5 through threaded statistics, the first
+    stage's from K13's statistics launch."""
     fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
     ta = importlib.import_module('star_tpu_torch.ops.temporal_attention')
     ftc = importlib.import_module('star_tpu_torch.ops.fused_temporal_conv')
+    nm = importlib.import_module('star_tpu_torch.ops.norms')
     events, phase = [], ['forward']
 
     def launch_fwd(q, k, v, heads, d, c, kv_valid, want_lse=False):
@@ -412,6 +432,10 @@ def test_differentiable_kernels_launch_forward_and_backward(monkeypatch,
                              (_fake(torch.zeros(*x.shape[:3], k3.shape[-1])),
                               (torch.ones(x.shape[0], k3.shape[-1]),) * 2
                               if ws else None))[1])
+    monkeypatch.setattr(nm, '_launch_stats', lambda x3: (
+        events.append(('gn_stats',)),
+        (torch.sum(x3, 1, dtype=torch.float32),
+         torch.sum(x3.float().square(), 1)))[1])
     in_backward(ta, 'temporal_attention_plain')
     in_backward(ftc, 'tconv3_plain')
     leaf = lambda *shape: _fake(torch.randn(*shape), requires_grad=True)
@@ -437,7 +461,7 @@ def test_differentiable_kernels_launch_forward_and_backward(monkeypatch,
                                          w, torch.zeros(64), want_stats=True)
         out, _ = ftc.fused_gn_silu_tconv3(y, torch.ones(64), torch.zeros(64),
                                           w, torch.zeros(64), stats=st)
-        want = [('tconv_fwd', True), ('tconv_fwd', False),
+        want = [('gn_stats',), ('tconv_fwd', True), ('tconv_fwd', False),
                 ('tconv3_plain', 'backward'), ('tconv3_plain', 'backward')]
         inputs = (x, w)
     phase[0] = 'backward'
@@ -493,10 +517,15 @@ def test_launchers_refuse_what_the_kernels_do_not_take():
 
 def test_vae_resnet_block_reaches_the_conv3x3_launcher_twice(monkeypatch):
     """A 128-channel VAE ResnetBlock2D on a CUDA tensor runs both of its
-    3x3 convs through the K6 launcher, never the plain version."""
+    3x3 convs through the K6 launcher, never the plain version; the first
+    GroupNorm's statistics are K13's, the second's K6's own."""
     from star_tpu_torch.ops import conv3x3 as c3
+    from star_tpu_torch.ops import norms as nm
     from star_tpu_torch.vae.svd_vae import ResnetBlock2D
     calls = []
+    monkeypatch.setattr(nm, '_launch_stats', lambda x3: (
+        calls.append(('gn_stats', tuple(x3.shape))),
+        (torch.zeros(x3.shape[0], x3.shape[2]),) * 2)[1])
 
     def launch(x, a, b, weight, bias, residual, want_stats):
         calls.append((tuple(weight.shape), residual is not None))
@@ -508,7 +537,8 @@ def test_vae_resnet_block_reaches_the_conv3x3_launcher_twice(monkeypatch):
     block = ResnetBlock2D(128, 128).requires_grad_(False)
     with torch.no_grad():
         out, st = block(_fake(torch.randn(2, 5, 8, 128)), want_stats=True)
-    assert calls == [((128, 128, 3, 3), False), ((128, 128, 3, 3), True)]
+    assert calls == [('gn_stats', (2, 40, 128)), ((128, 128, 3, 3), False),
+                     ((128, 128, 3, 3), True)]
     assert out.shape == (2, 5, 8, 128) and st[0].shape == (2, 128)
 
 

@@ -36,6 +36,7 @@ from star_tpu_torch.ops import flash_attention as fa
 from star_tpu_torch.ops import fused_ln as fl
 from star_tpu_torch.ops import fused_temporal_conv as ftc
 from star_tpu_torch.ops import geglu as gg
+from star_tpu_torch.ops import norms as nm
 from star_tpu_torch.ops import qk_ln_rope as qk
 from star_tpu_torch.ops import temporal_attention as ta
 from star_tpu_torch.ops import upsample_conv as uc
@@ -294,6 +295,8 @@ LAUNCHERS = {
     'kernel.K11': lambda: fl._launch_resid_ln(_fake(4, 320), _fake(4, 320),
                                               _z(320), _z(320), 1e-5, None),
     'kernel.K12': lambda: gg._launch(_fake(2, 5, 2 * 1280), 1280),
+    'kernel.K13': lambda: nm._launch_stats(_fake(2, 5, 320),
+                                           (_z(320), _z(320), 32, 1e-6)),
 }
 
 

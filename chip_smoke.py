@@ -494,7 +494,7 @@ def check_kernels(dev) -> dict[str, dict]:
     from star_tpu_torch.ops import (flash_attention as fa,
                                     fused_temporal_conv as ftc,
                                     temporal_attention as ta)
-    from star_tpu_torch.ops.conv3x3 import channel_stats, gn_coeffs
+    from star_tpu_torch.ops.norms import channel_stats, gn_coeffs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -721,7 +721,7 @@ def check_vae_kernels(dev, g, randn, record, results) -> None:
     of 720x1280, decoder calls of 6 and 2 frames)."""
     import torch
     import torch.nn.functional as F
-    from star_tpu_torch.ops import conv3x3 as c3, upsample_conv as uc
+    from star_tpu_torch.ops import conv3x3 as c3, norms, upsample_conv as uc
 
     # K6: the plain version's fp32 conv must not run in TF32 (set above)
     def k6_case(n, h, w, c, cout, residual, timed):
@@ -732,11 +732,11 @@ def check_vae_kernels(dev, g, randn, record, results) -> None:
               / math.sqrt(9 * c)).to(torch.bfloat16)
         cb = torch.randn(cout, generator=g, device=dev) * 0.1
         r = randn(n, h, w, cout) if residual else None
-        st = c3.channel_stats(x)
+        st = norms.channel_stats(x)
         what = f'K6 [{n},{h},{w},{c}->{cout}]{" +res" if residual else ""}'
         y, sty = c3.fused_gn_silu_conv3x3(x, sc, bi, wt, cb, stats=st,
                                           residual=r, want_stats=True)
-        a, b = c3.gn_coeffs(st, h * w * (c // 32), sc, bi, 32, 1e-6)
+        a, b = norms.gn_coeffs(st, h * w * (c // 32), sc, bi, 32, 1e-6)
         yr, str_ = c3.conv3x3_plain(x, a, b, wt, cb, r, True)
         agree = agrees(what, [(y, yr)])
         stats_agree(what, sty, str_)

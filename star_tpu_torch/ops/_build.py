@@ -188,20 +188,3 @@ def _sms(index: int) -> int:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f'{name}: CUDA launch failed with error {err}')
-
-
-def needs_grad(*tensors) -> bool:
-    """Grad mode is on and an input requires grad: the call is recorded."""
-    import torch
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
-def refuse_grad(name: str, *tensors) -> None:
-    """For the kernels that have no backward (K2 d=512, K6, K7, K8): raise
-    rather than return a result cut off from autograd when grad mode is on
-    and an input requires grad."""
-    if needs_grad(*tensors):
-        raise RuntimeError(f'{name} has no backward kernel: call it under '
-                           'torch.no_grad() or on inputs that do not '
-                           'require grad')

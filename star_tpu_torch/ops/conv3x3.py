@@ -22,11 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import spanned
-from . import _build, norms
+from . import _build, _contract, norms
 
-Stats = tuple[torch.Tensor, torch.Tensor]
-
-LAUNCHES = 0
+_contract.kernels('conv3x3')
 
 # K6's tiles (csrc/conv3x3_sm90.cu): a 16x16 output patch and 128 output
 # channels a block; the 18x18 halo of each 64-channel chunk in wgmma's
@@ -82,38 +80,6 @@ def conv3x3_launch_plan(n: int, h: int, w: int, c: int, cout: int,
                 group_bytes=(0, 16 * 8))
 
 
-def channel_stats(x: torch.Tensor) -> Stats:
-    """Per-(leading, channel) fp32 (sum, sum of squares) over all middle
-    axes: x [N, ..., C] -> ([N, C], [N, C]). K13's statistics pass
-    (ops/norms.py) for a CUDA tensor when no gradient is recorded (raising
-    on one it does not take), else the plain sums."""
-    n, c = x.shape[0], x.shape[-1]
-    xf = x.reshape(n, -1, c)
-    if xf.is_cuda and not _build.needs_grad(xf):
-        return norms._launch_stats(xf)
-    return (torch.sum(xf, dim=1, dtype=torch.float32),
-            torch.sum(xf.float().square(), dim=1))
-
-
-def gn_coeffs(stats: Stats, count: int, scale: torch.Tensor,
-              bias: torch.Tensor, num_groups: int,
-              eps: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fold GN statistics (sum, sumsq) [N, C] accumulated over `count`
-    elements per (n, group) into fp32 apply coefficients (a, b) [N, C] with
-    GN(x) * scale + bias == x * a + b."""
-    s, s2 = stats
-    n, c = s.shape
-    g = num_groups
-    mean = s.reshape(n, g, c // g).sum(-1) / count
-    var = s2.reshape(n, g, c // g).sum(-1) / count - mean.square()
-    inv = torch.rsqrt(var + eps)                           # [N, G]
-    inv_c = inv.repeat_interleave(c // g, dim=1)           # [N, C]
-    mean_c = mean.repeat_interleave(c // g, dim=1)
-    a = inv_c * scale.float()[None]
-    b = bias.float()[None] - mean_c * a
-    return a, b
-
-
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: torch.Tensor | None = None, stride: int = 1,
                 padding=0) -> torch.Tensor:
@@ -137,7 +103,7 @@ def conv3x3_plain(x, a, b, weight, bias, residual, want_stats):
     out = (acc.permute(0, 2, 3, 1) + bias.float()).to(x.dtype)
     if residual is not None:
         out = out + residual
-    return out, (channel_stats(out) if want_stats else None)
+    return out, (norms.channel_stats(out) if want_stats else None)
 
 
 def _stats_buffers(want_stats, n, c, out):
@@ -153,8 +119,7 @@ def _stats_buffers(want_stats, n, c, out):
 def _launch(x, a, b, weight, bias, residual, want_stats):
     """Launch csrc/conv3x3_sm90.cu. The [Cout, 3, 3, C] bf16 weight layout
     it reads (K contiguous) is made here on every call."""
-    global LAUNCHES
-    _build.refuse_grad('star_conv3x3', x, a, b, weight, bias, residual)
+    _contract.refuse_grad('star_conv3x3', x, a, b, weight, bias, residual)
     n, h, w, c = x.shape
     cout = weight.shape[0]
     if not x.is_cuda or x.dtype != torch.bfloat16 \
@@ -185,13 +150,14 @@ def _launch(x, a, b, weight, bias, residual, want_stats):
         out.data_ptr(), s.data_ptr(), s2.data_ptr(), n, h, w, c, cout,
         int(want_stats), plan['grid'][0], _build.stream_ptr(dev))
     _build.check(err, 'star_conv3x3')
-    LAUNCHES += 1
+    _contract.COUNTS['conv3x3'] += 1
     return out, ((s, s2) if want_stats else None)
 
 
 def fused_gn_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                           gn_bias: torch.Tensor, weight: torch.Tensor,
-                          bias: torch.Tensor, *, stats: Stats | None = None,
+                          bias: torch.Tensor, *,
+                          stats: norms.Stats | None = None,
                           residual: torch.Tensor | None = None,
                           want_stats: bool = False, num_groups: int = 32,
                           eps: float = 1e-6):
@@ -203,9 +169,9 @@ def fused_gn_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
     n, h, w, c = x.shape
     cout = weight.shape[0]
     if stats is None:
-        stats = channel_stats(x)
-    a, b = gn_coeffs(stats, h * w * (c // num_groups), gn_scale, gn_bias,
-                     num_groups, eps)
+        stats = norms.channel_stats(x)
+    a, b = norms.gn_coeffs(stats, h * w * (c // num_groups), gn_scale,
+                           gn_bias, num_groups, eps)
     if x.is_cuda and c % 128 == 0 and cout % 128 == 0:
         return _launch(x, a, b, weight, bias, residual, want_stats)
     return conv3x3_plain(x, a, b, weight, bias, residual, want_stats)

@@ -35,16 +35,14 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import annotate, spanned
-from . import _build
+from . import _build, _contract
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-# launches of each kernel (plain ints; chip_smoke.py resets and reads them)
-PACKED_LAUNCHES = 0   # K1, d=64
-LSE_LAUNCHES = 0      # K2 `with_l`: the d=64 forward writing the lse
-D512_LAUNCHES = 0     # K2, d=512
-BWD_LAUNCHES = 0      # K3, d=64
+# K1 (d=64), K2 `with_l` (the d=64 forward writing the lse), K3, K2 d=512
+_contract.kernels('flash_packed', 'flash_packed_lse', 'flash_bwd',
+                  'flash_d512')
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -222,7 +220,6 @@ def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
     (csrc/flash_fwd_d512_sm90.cu) on q/k/v whose rows are [S, heads*d]
     with head h at column h*d; returns the output in q's layout (and with
     `want_lse`, d=64 only, the fp32 log-sum-exp [B, heads, Sq])."""
-    global PACKED_LAUNCHES, LSE_LAUNCHES, D512_LAUNCHES
     span = ('kernel.K2' if d == 512 else
             'kernel.K2_with_l' if want_lse else 'kernel.K1')
     with annotate(span):
@@ -230,7 +227,7 @@ def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
         if name is None or (want_lse and d != 64):
             raise ValueError(f'flash kernel takes head_dim 64 or 512 '
                              f'(lse: 64 only), not {d}')
-        _build.refuse_grad(name, q, k, v)
+        _contract.refuse_grad(name, q, k, v)
         for t in (q, k, v):
             if not t.is_cuda or t.dtype != torch.bfloat16:
                 raise ValueError('flash kernel takes bf16 CUDA tensors, got '
@@ -262,14 +259,10 @@ def _launch(q, k, v, heads: int, d: int, c: float, kv_valid: int,
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), *strides)
         _build.check(err, name)
-        if d == 512:
-            D512_LAUNCHES += 1
-        elif want_lse:
-            LSE_LAUNCHES += 1
-            return out, lse
-        else:
-            PACKED_LAUNCHES += 1
-        return out
+        _contract.COUNTS['flash_d512' if d == 512 else
+                         'flash_packed_lse' if want_lse else
+                         'flash_packed'] += 1
+        return (out, lse) if want_lse else out
 
 
 @spanned('kernel.K3')
@@ -279,7 +272,6 @@ def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float,
     kernel and the dQ conversion, one call); q/o/do [B, Sq, H*64], k/v
     [B, Sk, H*64], lse [B, H, Sq] fp32. Key rows >= kv_valid get zero
     gradients."""
-    global BWD_LAUNCHES
     bsz, sq, c = q.shape
     sk = k.shape[1]
     if c != heads * 64:
@@ -310,7 +302,7 @@ def _launch_bwd(q, k, v, o, lse, do, heads: int, scale: float,
         dv.data_ptr(), ws.data_ptr(), bsz, heads, sq, sk, kv, sq * c,
         sk * c, c, float(scale), _build.stream_ptr(q.device))
     _build.check(err, 'star_flash_bwd_d64')
-    BWD_LAUNCHES += 1
+    _contract.COUNTS['flash_bwd'] += 1
     return dq, dk, dv
 
 
@@ -356,7 +348,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1] // num_heads
     s = (1.0 / math.sqrt(d)) if scale is None else scale
     kv = k.shape[1] if kv_valid is None else min(kv_valid, k.shape[1])
-    if _build.needs_grad(q, k, v):
+    if _contract.needs_grad(q, k, v):
         return _FlashAttentionD64.apply(q, k, v, num_heads,
                                         LN2 if prescaled else s, kv)
     if q.is_cuda:
@@ -373,7 +365,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel raises under grad."""
     b, sq, h, d = q.shape
     s = (1.0 / math.sqrt(d)) if scale is None else scale
-    if _build.needs_grad(q, k, v) and (d == 64 or not q.is_cuda):
+    if _contract.needs_grad(q, k, v) and (d == 64 or not q.is_cuda):
         flat = lambda t: t.reshape(t.shape[0], t.shape[1], h * d)
         out = _FlashAttentionD64.apply(flat(q), flat(k), flat(v), h, s,
                                        k.shape[1])

@@ -12,12 +12,12 @@ own add), normalises xr and returns (normed, xr).
 
 A CUDA tensor goes through csrc/fused_ln.cu (bf16, contiguous, C a
 multiple of 64 up to 4096; anything else raises), whose path by width is
-`ln_launch_plan`; a CPU tensor through the plain version. Under autograd
-both are torch.autograd.Functions whose backward recomputes the plain
-version from the saved inputs and differentiates it, on CUDA tensors too,
-as the JAX package's custom VJPs recompute through their references
-(fused_ln.py:168-199, stream_fuse.py:210-218); there is no backward
-kernel. Gradients reach x, resid, scale, bias and the gate weights.
+`ln_launch_plan`; a CPU tensor through the plain version. There is no
+backward kernel: under autograd on a CUDA tensor the forward is the
+kernel, and the backward recomputes the plain version from the saved
+inputs and differentiates it, as the JAX package's custom VJPs recompute
+through their references (fused_ln.py:168-199, stream_fuse.py:210-218).
+Gradients reach x, resid, scale, bias and the gate weights.
 """
 
 from __future__ import annotations
@@ -25,10 +25,9 @@ from __future__ import annotations
 import torch
 
 from ..utils.profiling import spanned
-from . import _build
+from . import _build, _contract
 
-LN_LAUNCHES = 0          # K10
-RESID_LN_LAUNCHES = 0    # K11
+_contract.kernels('fused_ln', 'fused_resid_ln')     # K10, K11
 
 # csrc/fused_ln.cu: one warp a row, 4 rows a block; rows of C >= LN_WIDE
 # take the 16-byte path, its register array sized to the exact C for the
@@ -125,7 +124,6 @@ def _kernel_args(name, x, scale, bias, gate_w, others=()):
 
 @spanned('kernel.K10')
 def _launch_ln(x, scale, bias, eps, gate_w):
-    global LN_LAUNCHES
     rows, c, sc, bi, gw, pbf = _kernel_args('fused_ln', x, scale, bias,
                                             gate_w)
     out = torch.empty_like(x)
@@ -135,13 +133,12 @@ def _launch_ln(x, scale, bias, eps, gate_w):
             None if gw is None else gw.data_ptr(), pbf, out.data_ptr(), rows,
             c, float(eps), _build.stream_ptr(x.device))
         _build.check(err, 'star_fused_ln')
-        LN_LAUNCHES += 1
+        _contract.COUNTS['fused_ln'] += 1
     return out
 
 
 @spanned('kernel.K11')
-def _launch_resid_ln(y, resid, scale, bias, eps, gate_w):
-    global RESID_LN_LAUNCHES
+def _launch_resid_ln(y, scale, bias, resid, gate_w, eps):
     rows, c, sc, bi, gw, pbf = _kernel_args('fused_resid_ln', y, scale, bias,
                                             gate_w, (resid,))
     out, xr = torch.empty_like(y), torch.empty_like(y)
@@ -151,72 +148,14 @@ def _launch_resid_ln(y, resid, scale, bias, eps, gate_w):
             None if gw is None else gw.data_ptr(), pbf, out.data_ptr(),
             xr.data_ptr(), rows, c, float(eps), _build.stream_ptr(y.device))
         _build.check(err, 'star_fused_resid_ln')
-        RESID_LN_LAUNCHES += 1
+        _contract.COUNTS['fused_resid_ln'] += 1
     return out, xr
 
 
-def _ln(x, scale, bias, eps, gate_w, plain=False):
-    """K10 for a CUDA tensor unless `plain`, else the plain version."""
-    if x.is_cuda and not plain:
-        return _launch_ln(x, scale, bias, eps, gate_w)
-    return fused_ln_plain(x, scale, bias, eps, gate_w)
-
-
-def _resid_ln(y, resid, scale, bias, eps, gate_w, plain=False):
-    """K11 for a CUDA tensor unless `plain`, else the plain version."""
-    if y.is_cuda and not plain:
-        return _launch_resid_ln(y, resid, scale, bias, eps, gate_w)
-    return fused_resid_ln_plain(y, scale, bias, resid, gate_w, eps)
-
-
-def _recompute_grads(ctx, fn, cts):
-    """Gradients of the saved inputs that need them: the plain version
-    recomputed from them under grad and differentiated against `cts`."""
-    inputs = [t.detach().requires_grad_() if t is not None and need else t
-              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-    live = [t for t in inputs if t is not None and t.requires_grad]
-    with torch.enable_grad():
-        outs = fn(*inputs)
-        grads = iter(torch.autograd.grad(outs, live, cts, allow_unused=True))
-    return [next(grads) if t is not None and t.requires_grad else None
-            for t in inputs]
-
-
-class _FusedLN(torch.autograd.Function):
-    """K10 forward (the plain version on the CPU, or with `plain`, which the
-    tests use to hold the Function itself); the backward recomputes the
-    plain version and differentiates it."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, gate_w, eps, plain):
-        ctx.save_for_backward(x, scale, bias, gate_w)
-        ctx.eps = eps
-        return _ln(x, scale, bias, eps, gate_w, plain)
-
-    @staticmethod
-    def backward(ctx, ct):
-        grads = _recompute_grads(
-            ctx, lambda x, sc, bi, gw: fused_ln_plain(x, sc, bi, ctx.eps, gw),
-            [ct])
-        return (*grads, None, None)
-
-
-class _FusedResidLN(torch.autograd.Function):
-    """K11 forward (the plain version on the CPU) -> (normed, xr); the
-    backward recomputes the plain version and differentiates both outputs."""
-
-    @staticmethod
-    def forward(ctx, y, resid, scale, bias, gate_w, eps, plain):
-        ctx.save_for_backward(y, resid, scale, bias, gate_w)
-        ctx.eps = eps
-        return _resid_ln(y, resid, scale, bias, eps, gate_w, plain)
-
-    @staticmethod
-    def backward(ctx, ct_normed, ct_xr):
-        grads = _recompute_grads(
-            ctx, lambda y, r, sc, bi, gw: fused_resid_ln_plain(
-                y, sc, bi, r, gw, ctx.eps), [ct_normed, ct_xr])
-        return (*grads, None, None)
+_K10 = _contract.Kernel(__name__, '_launch_ln', 'fused_ln_plain',
+                        recompute=True)
+_K11 = _contract.Kernel(__name__, '_launch_resid_ln', 'fused_resid_ln_plain',
+                        recompute=True)
 
 
 def fused_ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -225,9 +164,7 @@ def fused_ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """K10: LayerNorm over the last axis of x [..., C], after the LIEM gate
     when `gate_w` [2] (w0 -> channel max, w1 -> channel mean) is given.
     Differentiable (plain recompute backward)."""
-    if _build.needs_grad(x, scale, bias, gate_w):
-        return _FusedLN.apply(x, scale, bias, gate_w, eps, False)
-    return _ln(x, scale, bias, eps, gate_w)
+    return _K10(x, scale, bias, eps, gate_w)
 
 
 def fused_resid_ln(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -239,8 +176,4 @@ def fused_resid_ln(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     backward)."""
     if resid is None:
         return fused_ln(y, scale, bias, eps, gate_w), None
-    if _build.needs_grad(y, resid, scale, bias, gate_w):
-        normed, xr = _FusedResidLN.apply(y, resid, scale, bias, gate_w, eps,
-                                         False)
-        return normed, xr
-    return _resid_ln(y, resid, scale, bias, eps, gate_w)
+    return _K11(y, scale, bias, resid, gate_w, eps)

@@ -8,14 +8,12 @@ plain PyTorch; the rest is csrc/fused_tconv3_sm90.cu (wgmma + TMA; its
 launch arithmetic is `tconv3_launch_plan`) for a CUDA tensor and the plain
 version (the JAX package's `_tconv_xla`) for a CPU tensor.
 
-Under autograd the forward is the same, and the backward recomputes the
-plain chain (statistics, `gn_coeffs`, `tconv3_plain`) from the saved
-inputs and differentiates it, on CUDA tensors too, as the JAX package's
-custom VJP recomputes through `_reference`
-(`star_tpu/ops/fused_temporal_conv.py:256-263`); there is no backward
-kernel, and this recompute is the one place (with K4's) where a plain
-version runs on the card, by design. The threaded statistics are inputs
-and outputs of the differentiated function: the backward takes
+There is no backward kernel: under autograd on a CUDA tensor the forward
+is the kernel, and the backward recomputes the plain stage (statistics,
+`gn_coeffs`, `tconv3_plain`) from the saved inputs and differentiates it,
+as the JAX package's custom VJP recomputes through `_reference`
+(`star_tpu/ops/fused_temporal_conv.py:256-263`). The threaded statistics
+are inputs and outputs of the differentiated function: the backward takes
 cotangents for the output (sum, sumsq) and returns them for the incoming
 ones, which carry the mean and variance terms of the next GroupNorm's
 gradient back to the stage that produced them. With bf16 operands the
@@ -32,10 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import spanned
-from . import _build
-from .conv3x3 import Stats, channel_stats, gn_coeffs
+from . import _build, _contract
+from .norms import Stats, channel_stats, gn_coeffs
 
-LAUNCHES = 0
+_contract.kernels('fused_gn_silu_tconv3')
 
 # K5's tiles (csrc/fused_tconv3_sm90.cu): at most 128 rows a tile (two
 # 64-row wgmma blocks), frame-major; two consumer warpgroups of NW columns
@@ -210,7 +208,6 @@ def tconv3_plain(x, a, b, kernel3, bias, residual, want_stats,
 
 @spanned('kernel.K5')
 def _launch(x, a, b, kernel3, bias, residual, want_stats, per_frame):
-    global LAUNCHES
     bsz, f, n, c = x.shape
     cout = kernel3.shape[-1]
     if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -245,66 +242,41 @@ def _launch(x, a, b, kernel3, bias, residual, want_stats, per_frame):
         plan['slab_bytes'], plan['wstages'], plan['grid'][0], plan['smem'],
         _build.stream_ptr(dev))
     _build.check(err, 'star_fused_gn_silu_tconv3')
-    LAUNCHES += 1
+    _contract.COUNTS['fused_gn_silu_tconv3'] += 1
     return out, ((s, s2) if want_stats else None)
 
 
-def _coeffs(x, gn_scale, gn_bias, stats, num_groups, eps):
-    """GN apply coefficients (a, b) [B, C] from the threaded statistics of
-    x, or from x itself when there are none."""
+def _coeffs(x, gn_scale, gn_bias, s, s2, num_groups, eps):
+    """The GN coefficients (a, b) of the statistics (s, s2) of x, taken
+    from x itself when there are none."""
     bsz, f, n, c = x.shape
-    if stats is None:
-        stats = channel_stats(x.reshape(bsz, f * n, c))
+    stats = (channel_stats(x.reshape(bsz, f * n, c)) if s is None
+             else (s, s2))
     return gn_coeffs(stats, f * n * (c // num_groups), gn_scale, gn_bias,
                      num_groups, eps)
 
 
-def _stage(x, gn_scale, gn_bias, kernel, bias, stats, residual, num_groups,
-           eps, want_stats, per_frame, plain=False):
-    """One stage: K5 for a CUDA tensor unless `plain`, else the plain
-    version (which the backward differentiates)."""
-    a, b = _coeffs(x, gn_scale, gn_bias, stats, num_groups, eps)
-    if x.is_cuda and not plain:
-        return _launch(x, a, b, kernel[:, 0], bias, residual, want_stats,
-                       per_frame)
-    return tconv3_plain(x, a, b, kernel[:, 0], bias, residual, want_stats,
-                        per_frame)
+def _stage_launch(x, gn_scale, gn_bias, kernel, bias, s, s2, residual,
+                  num_groups, eps, want_stats, per_frame):
+    """One stage through K5; returns (y, sum, sumsq), the last two None
+    without `want_stats`."""
+    a, b = _coeffs(x, gn_scale, gn_bias, s, s2, num_groups, eps)
+    y, st = _launch(x, a, b, kernel[:, 0], bias, residual, want_stats,
+                    per_frame)
+    return (y, *st) if want_stats else (y, None, None)
 
 
-class _FusedTConv3(torch.autograd.Function):
-    """K5 forward (the plain version on the CPU); the backward recomputes
-    the plain stage from the saved inputs, the incoming statistics
-    included, and differentiates it against the cotangents of y and of the
-    output statistics."""
+def _stage_plain(x, gn_scale, gn_bias, kernel, bias, s, s2, residual,
+                 num_groups, eps, want_stats, per_frame):
+    """The same stage through tconv3_plain."""
+    a, b = _coeffs(x, gn_scale, gn_bias, s, s2, num_groups, eps)
+    y, st = tconv3_plain(x, a, b, kernel[:, 0], bias, residual, want_stats,
+                         per_frame)
+    return (y, *st) if want_stats else (y, None, None)
 
-    @staticmethod
-    def forward(ctx, x, gn_scale, gn_bias, kernel, bias, s_in, s2_in,
-                residual, num_groups, eps, want_stats, per_frame):
-        ctx.save_for_backward(x, gn_scale, gn_bias, kernel, bias, s_in,
-                              s2_in, residual)
-        ctx.cfg = (num_groups, eps, want_stats, per_frame)
-        y, st = _stage(x, gn_scale, gn_bias, kernel, bias,
-                       None if s_in is None else (s_in, s2_in), residual,
-                       num_groups, eps, want_stats, per_frame)
-        return (y, *st) if want_stats else y
 
-    @staticmethod
-    def backward(ctx, *cts):
-        num_groups, eps, want_stats, per_frame = ctx.cfg
-        inputs = [t.detach().requires_grad_() if t is not None and need
-                  else t for t, need in zip(ctx.saved_tensors,
-                                            ctx.needs_input_grad)]
-        live = [t for t in inputs if t is not None and t.requires_grad]
-        with torch.enable_grad():
-            x, sc, bi, w, b, s, s2, r = inputs
-            y, st = _stage(x, sc, bi, w, b, None if s is None else (s, s2),
-                           r, num_groups, eps, want_stats, per_frame,
-                           plain=True)
-            grads = iter(torch.autograd.grad(
-                [y, *st] if want_stats else [y], live, cts,
-                allow_unused=True))
-        return (*(next(grads) if t is not None and t.requires_grad else None
-                  for t in inputs), None, None, None, None)
+_K5 = _contract.Kernel(__name__, '_stage_launch', '_stage_plain',
+                       recompute=True)
 
 
 def fused_gn_silu_tconv3(x: torch.Tensor, gn_scale: torch.Tensor,
@@ -322,12 +294,7 @@ def fused_gn_silu_tconv3(x: torch.Tensor, gn_scale: torch.Tensor,
     `stats_per_frame` the output statistics are per (batch, frame) rows
     [B*F, Cout]. Differentiable (plain recompute backward), through the
     threaded statistics too."""
-    if _build.needs_grad(x, gn_scale, gn_bias, kernel, bias, residual,
-                         *(stats or ())):
-        s_in, s2_in = (None, None) if stats is None else stats
-        out = _FusedTConv3.apply(x, gn_scale, gn_bias, kernel, bias, s_in,
-                                 s2_in, residual, num_groups, eps,
-                                 want_stats, stats_per_frame)
-        return (out[0], tuple(out[1:])) if want_stats else (out, None)
-    return _stage(x, gn_scale, gn_bias, kernel, bias, stats, residual,
-                  num_groups, eps, want_stats, stats_per_frame)
+    s, s2 = (None, None) if stats is None else stats
+    y, s, s2 = _K5(x, gn_scale, gn_bias, kernel, bias, s, s2, residual,
+                   num_groups, eps, want_stats, stats_per_frame)
+    return y, ((s, s2) if want_stats else None)

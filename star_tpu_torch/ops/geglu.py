@@ -8,8 +8,9 @@ A CUDA tensor goes through csrc/geglu.cu (contiguous, 16-byte aligned bf16,
 inner a multiple of 8; anything else raises); a CPU tensor through the
 plain version, the expression `FeedForwardGEGLU` ran before.
 
-Under autograd the forward is the same, and the backward recomputes the
-plain version from the saved p and differentiates it, as K4's does.
+Under autograd on a CUDA tensor the forward is the kernel, and the
+backward recomputes the plain version from the saved p and differentiates
+it, as K4's does.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import spanned
-from . import _build
+from . import _build, _contract
 
-LAUNCHES = 0
+_contract.kernels('geglu')
 
 
 def geglu_plain(p):
@@ -29,9 +30,9 @@ def geglu_plain(p):
 
 
 @spanned('kernel.K12')
-def _launch(p, inner: int):
-    global LAUNCHES
-    if inner <= 0 or inner % 8 or p.shape[-1] != 2 * inner:
+def _launch(p):
+    inner = p.shape[-1] // 2
+    if p.shape[-1] <= 0 or p.shape[-1] % 16:
         raise ValueError(f'GEGLU kernel takes [..., 2*inner] with inner a '
                          f'multiple of 8, got {tuple(p.shape)}')
     if p.dtype != torch.bfloat16 or not p.is_contiguous() or not p.is_cuda:
@@ -46,36 +47,14 @@ def _launch(p, inner: int):
     err = _build.lib().star_geglu(p.data_ptr(), out.data_ptr(), rows, inner,
                                   _build.stream_ptr(p.device))
     _build.check(err, 'star_geglu')
-    LAUNCHES += 1
+    _contract.COUNTS['geglu'] += 1
     return out
 
 
-def _forward(p):
-    if p.is_cuda:
-        return _launch(p, p.shape[-1] // 2)
-    return geglu_plain(p)
-
-
-class _Geglu(torch.autograd.Function):
-    """K12 forward (the plain version on the CPU); the backward recomputes
-    `geglu_plain` from the saved p and differentiates it."""
-
-    @staticmethod
-    def forward(ctx, p):
-        ctx.save_for_backward(p)
-        return _forward(p)
-
-    @staticmethod
-    def backward(ctx, g):
-        with torch.enable_grad():
-            p = ctx.saved_tensors[0].detach().requires_grad_()
-            (dp,) = torch.autograd.grad(geglu_plain(p), (p,), g)
-        return dp
+_K12 = _contract.Kernel(__name__, '_launch', 'geglu_plain', recompute=True)
 
 
 def geglu(p: torch.Tensor) -> torch.Tensor:
     """p [..., 2*inner] (h, then the gate) -> h * gelu_tanh(gate)
     [..., inner]. Differentiable (plain recompute backward)."""
-    if _build.needs_grad(p):
-        return _Geglu.apply(p)
-    return _forward(p)
+    return _K12(p)

@@ -12,14 +12,15 @@ and SiLU, star_tpu/models/unet/blocks.py:419-427): one statistics pass
 mean, a and bias) and one apply (`star_gn_apply`, the SiLU fused), for a
 contiguous 16-byte aligned bf16 CUDA tensor with C a multiple of 8 up to
 8192; the launchers raise on any other CUDA tensor. On the CPU
-`group_norm_plain` is the eager expression. Under autograd the forward is
-K13 and the backward recomputes the plain version from the saved inputs
-and differentiates it. `_launch_stats` alone also serves
-`ops/conv3x3.channel_stats`.
+`group_norm_plain` is the eager expression. Under autograd on a CUDA
+tensor the forward is K13 and the backward recomputes the plain version
+from the saved inputs and differentiates it.
 
-The models' LayerNorms run the kernels K10 and K11 (ops/fused_ln.py),
-which apply in fp32 and round once; `layer_norm` and `liem_layer_norm`
-here are the JAX package's eager functions, kept as its counterparts.
+The statistics the fused kernels thread from one GroupNorm to the next
+live here too: `channel_stats` (K13's statistics pass alone on the card)
+and `gn_coeffs`, which folds them into apply coefficients.
+
+The models' LayerNorms run the kernels K10 and K11 (ops/fused_ln.py);
 `gated_layer_norm` serves the SpatialLIEM-gated norm1, which no kernel
 computes.
 """
@@ -30,10 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import spanned
-from . import _build
+from . import _build, _contract
 
-LAUNCHES = 0          # K13 applies
-STATS_LAUNCHES = 0    # K13 statistics launches
+Stats = tuple[torch.Tensor, torch.Tensor]
+
+_contract.kernels('group_norm', 'gn_stats')   # K13's applies, statistics
 
 # K13's blocks (csrc/group_norm.cu): k row lanes of C / 8 threads, about
 # GN_LANE_THREADS a block; C up to GN_MAX_C, groups of at most GN_MAX_GROUP
@@ -104,7 +106,6 @@ def _launch_stats(x3, fold=None):
     """K13's statistics of x3 [N, R, C]: fp32 (sum, sum of squares)
     [N, C]; with fold = (scale, bias, num_groups, eps) the GroupNorm's bf16
     apply coefficients (mean, a, bias) [N, C] instead."""
-    global STATS_LAUNCHES
     _check(x3)
     n, r, c = x3.shape
     dev = x3.device
@@ -134,7 +135,7 @@ def _launch_stats(x3, fold=None):
         n, r, c, groups, float(eps), plan['k'], max_slabs, sms,
         _build.stream_ptr(dev))
     _build.check(err, 'star_gn_stats')
-    STATS_LAUNCHES += 1
+    _contract.COUNTS['gn_stats'] += 1
     return stats if fold is None else coeffs
 
 
@@ -153,7 +154,6 @@ def _params(scale, bias, dev):
 def _launch_apply(x3, mean, a, b, silu: bool):
     """K13's apply on x3 [N, R, C] with the bf16 coefficients [N, C]:
     bf16(bf16(bf16(x - mean) * a) + b), then the SiLU with `silu`."""
-    global LAUNCHES
     _check(x3)
     n, r, c = x3.shape
     for t in (mean, a, b):
@@ -168,7 +168,7 @@ def _launch_apply(x3, mean, a, b, silu: bool):
         y.data_ptr(), n, r, c, gn_launch_plan(c)['k'], int(bool(silu)),
         _build.sm_count(dev), _build.stream_ptr(dev))
     _build.check(err, 'star_gn_apply')
-    LAUNCHES += 1
+    _contract.COUNTS['group_norm'] += 1
     return y
 
 
@@ -180,26 +180,8 @@ def _k13(x, scale, bias, num_groups, eps, silu):
     return _launch_apply(x3, mean, a, b, silu).view(x.shape)
 
 
-class _GroupNorm(torch.autograd.Function):
-    """K13 forward; the backward recomputes `group_norm_plain` from the
-    saved x, scale and bias and differentiates it."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps, silu):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.cfg = (num_groups, eps, silu)
-        return _k13(x, scale, bias, num_groups, eps, silu)
-
-    @staticmethod
-    def backward(ctx, g):
-        want = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(w)
-                   for t, w in zip(ctx.saved_tensors, want)]
-            y = group_norm_plain(*ins, *ctx.cfg)
-            got = iter(torch.autograd.grad(
-                y, [t for t, w in zip(ins, want) if w], g))
-        return (*(next(got) if w else None for w in want), None, None, None)
+_K13 = _contract.Kernel(__name__, '_k13', 'group_norm_plain',
+                        recompute=True)
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -209,22 +191,40 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     then the SiLU with `silu`: K13 for a CUDA tensor (raising on one it does
     not take), the plain version on the CPU. Differentiable (plain recompute
     backward)."""
-    if not x.is_cuda:
-        return group_norm_plain(x, scale, bias, num_groups, eps, silu)
-    if _build.needs_grad(x, scale, bias):
-        return _GroupNorm.apply(x, scale, bias, num_groups, eps, silu)
-    return _k13(x, scale, bias, num_groups, eps, silu)
+    return _K13(x, scale, bias, num_groups, eps, silu)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis with fp32 statistics."""
-    dtype = x.dtype
-    mean = _mean_f32(x, (-1,))
-    m2 = _mean_f32(x.float().square(), (-1,))
-    var = torch.clamp(m2 - mean.square(), min=0.0)
-    a = torch.rsqrt(var + eps).to(dtype)
-    return (x - mean.to(dtype)) * a * scale.to(dtype) + bias.to(dtype)
+def channel_stats(x: torch.Tensor) -> Stats:
+    """Per-(leading, channel) fp32 (sum, sum of squares) over all middle
+    axes: x [N, ..., C] -> ([N, C], [N, C]). K13's statistics pass for a
+    CUDA tensor when no gradient is recorded (raising on one it does not
+    take), else the plain sums: on the CPU, and in K5's recompute backward,
+    which differentiates them on the card."""
+    n, c = x.shape[0], x.shape[-1]
+    xf = x.reshape(n, -1, c)
+    if xf.is_cuda and not _contract.needs_grad(xf):
+        return _launch_stats(xf)
+    return (torch.sum(xf, dim=1, dtype=torch.float32),
+            torch.sum(xf.float().square(), dim=1))
+
+
+def gn_coeffs(stats: Stats, count: int, scale: torch.Tensor,
+              bias: torch.Tensor, num_groups: int,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold GN statistics (sum, sumsq) [N, C] accumulated over `count`
+    elements per (n, group) into fp32 apply coefficients (a, b) [N, C] with
+    GN(x) * scale + bias == x * a + b."""
+    s, s2 = stats
+    n, c = s.shape
+    g = num_groups
+    mean = s.reshape(n, g, c // g).sum(-1) / count
+    var = s2.reshape(n, g, c // g).sum(-1) / count - mean.square()
+    inv = torch.rsqrt(var + eps)                           # [N, G]
+    inv_c = inv.repeat_interleave(c // g, dim=1)           # [N, C]
+    mean_c = mean.repeat_interleave(c // g, dim=1)
+    a = inv_c * scale.float()[None]
+    b = bias.float()[None] - mean_c * a
+    return a, b
 
 
 def gated_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -235,22 +235,6 @@ def gated_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mean = _mean_f32(x, (-1,))
     m2 = _mean_f32(x.float().square(), (-1,))
     g = g.float()
-    var = torch.clamp(m2 - mean.square(), min=0.0)
-    a = (g * torch.rsqrt(var * g.square() + eps)).to(dtype)
-    return (x - mean.to(dtype)) * a * scale.to(dtype) + bias.to(dtype)
-
-
-def liem_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    gate_w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm(g * x) with the TemporalLIEM gate
-    g = sigmoid(w0*max_c(x) + w1*mean_c(x)) folded into the coefficients.
-    gate_w: [2] (w0 -> channel max, w1 -> channel mean)."""
-    dtype = x.dtype
-    mx = torch.amax(x, dim=-1, keepdim=True).float()
-    mean = _mean_f32(x, (-1,))
-    m2 = _mean_f32(x.float().square(), (-1,))
-    gw = gate_w.float()
-    g = torch.sigmoid(mx * gw[0] + mean * gw[1])
     var = torch.clamp(m2 - mean.square(), min=0.0)
     a = (g * torch.rsqrt(var * g.square() + eps)).to(dtype)
     return (x - mean.to(dtype)) * a * scale.to(dtype) + bias.to(dtype)

@@ -28,12 +28,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.profiling import annotate, spanned
-from . import _build
+from . import _build, _contract
 
 LOG2E = 1.4426950408889634
 
-LAUNCHES = 0
-BWD_LAUNCHES = 0
+_contract.kernels('qk_ln_rope', 'qk_ln_rope_bwd')
 # calls of the autograd backward, on either device
 BACKWARDS = 0
 
@@ -122,8 +121,7 @@ def _f32(t, dev):
 @spanned('kernel.K9')
 def _launch(x, scale, bias, cos, sin, num_heads: int, eps: float,
             fold_scale: float):
-    global LAUNCHES
-    _build.refuse_grad('star_qk_ln_rope', x, scale, bias)
+    _contract.refuse_grad('star_qk_ln_rope', x, scale, bias)
     _check(x, (), scale, bias, cos, sin, num_heads, 4)
     b, s, _ = x.shape
     dev = x.device
@@ -135,7 +133,7 @@ def _launch(x, scale, bias, cos, sin, num_heads: int, eps: float,
         bi.data_ptr(), out.data_ptr(), b * s, s, num_heads, float(eps),
         _build.stream_ptr(dev))
     _build.check(err, 'star_qk_ln_rope')
-    LAUNCHES += 1
+    _contract.COUNTS['qk_ln_rope'] += 1
     return out
 
 
@@ -146,7 +144,6 @@ def _launch_bwd(x, ct, scale, bias, cos, sin, num_heads: int, eps: float,
     then summed over blocks (a fixed order: deterministic). Opens no range
     of its own: it runs directly inside the Function's
     `qk_ln_rope_backward`."""
-    global BWD_LAUNCHES
     _check(x, (ct,), scale, bias, cos, sin, num_heads, 16)
     b, s, _ = x.shape
     dev = x.device
@@ -164,27 +161,15 @@ def _launch_bwd(x, ct, scale, bias, cos, sin, num_heads: int, eps: float,
         part.data_ptr(), b * s, s, num_heads, float(eps), float(fold_scale),
         _build.stream_ptr(dev))
     _build.check(err, 'star_qk_ln_rope_bwd')
-    BWD_LAUNCHES += 1
+    _contract.COUNTS['qk_ln_rope_bwd'] += 1
     if part is None:
         return dx, None, None
     dbias, dscale = part.sum(0)
     return dx, dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
-def _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale):
-    """K9 for a CUDA tensor, else the plain version."""
-    if x.is_cuda:
-        return _launch(x, scale, bias, cos, sin, num_heads, eps, fold_scale)
-    return qk_ln_rope_plain(x, scale, bias, cos, sin, num_heads, eps,
-                            fold_scale)
-
-
-def _run_bwd(x, ct, scale, bias, cos, sin, num_heads, eps, fold_scale,
-             want_params):
-    """K9's backward kernel for a CUDA tensor, else its plain version."""
-    fn = _launch_bwd if x.is_cuda else qk_ln_rope_bwd_plain
-    return fn(x, ct, scale, bias, cos, sin, num_heads, eps, fold_scale,
-              want_params)
+_K9 = _contract.Kernel(__name__, '_launch', 'qk_ln_rope_plain')
+_K9_BWD = _contract.Kernel(__name__, '_launch_bwd', 'qk_ln_rope_bwd_plain')
 
 
 class _QkLnRope(torch.autograd.Function):
@@ -195,7 +180,7 @@ class _QkLnRope(torch.autograd.Function):
     def forward(ctx, x, scale, bias, cos, sin, num_heads, eps, fold_scale):
         ctx.save_for_backward(x, scale, bias, cos, sin)
         ctx.args = (num_heads, eps, fold_scale)
-        return _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale)
+        return _K9(x, scale, bias, cos, sin, num_heads, eps, fold_scale)
 
     @staticmethod
     @once_differentiable
@@ -205,8 +190,8 @@ class _QkLnRope(torch.autograd.Function):
         x, scale, bias, cos, sin = ctx.saved_tensors
         need_x, need_sc, need_bi = ctx.needs_input_grad[:3]
         with annotate('qk_ln_rope_backward'):
-            dx, dsc, dbi = _run_bwd(x, ct.contiguous(), scale, bias, cos, sin,
-                                    *ctx.args, need_sc or need_bi)
+            dx, dsc, dbi = _K9_BWD(x, ct.contiguous(), scale, bias, cos, sin,
+                                   *ctx.args, need_sc or need_bi)
         return (dx if need_x else None, dsc if need_sc else None,
                 dbi if need_bi else None, None, None, None, None, None)
 
@@ -216,7 +201,7 @@ def qk_ln_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6, fold_scale: float = 1.0) -> torch.Tensor:
     """K9. x [B, S, H*D] -> LayerNormed and rotated [B, S, H*D].
     Differentiable in x, scale and bias (closed-form backward)."""
-    if _build.needs_grad(x, scale, bias):
+    if _contract.needs_grad(x, scale, bias):
         return _QkLnRope.apply(x, scale, bias, cos, sin, num_heads, eps,
                                fold_scale)
-    return _run(x, scale, bias, cos, sin, num_heads, eps, fold_scale)
+    return _K9(x, scale, bias, cos, sin, num_heads, eps, fold_scale)

@@ -33,12 +33,12 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import spanned
-from . import _build
+from . import _build, _contract
 from .conv3x3 import (H100_SMS, K6_BN, K6_GROUP_BYTES, K6_SMEM, K6_T,
-                      K6_THREADS, _stats_buffers, channel_stats)
+                      K6_THREADS, _stats_buffers)
+from .norms import channel_stats
 
-UPSAMPLE_LAUNCHES = 0     # K7
-INTERLEAVE_LAUNCHES = 0   # K8
+_contract.kernels('upsample_conv2x', 'interleave2x2')     # K7, K8
 
 # the 3x3 taps a (rows, or columns) that fold into tap p of phase r: even
 # outputs read a = 0 at p = 0 and a = 1, 2 at p = 1; odd outputs a = 0, 1
@@ -144,8 +144,7 @@ def interleave2x2_plain(p00, p01, p10, p11, want_stats=False):
 
 @spanned('kernel.K8')
 def _launch_interleave(p00, p01, p10, p11, want_stats):
-    global INTERLEAVE_LAUNCHES
-    _build.refuse_grad('star_interleave2x2', p00, p01, p10, p11)
+    _contract.refuse_grad('star_interleave2x2', p00, p01, p10, p11)
     n, h, w, c = p00.shape
     for p in (p00, p01, p10, p11):
         if not p.is_cuda or p.dtype != torch.bfloat16 \
@@ -162,8 +161,11 @@ def _launch_interleave(p00, p01, p10, p11, want_stats):
         out.data_ptr(), s.data_ptr(), s2.data_ptr(), n, h, w, c,
         int(want_stats), _build.stream_ptr(p00.device))
     _build.check(err, 'star_interleave2x2')
-    INTERLEAVE_LAUNCHES += 1
+    _contract.COUNTS['interleave2x2'] += 1
     return (out, (s, s2)) if want_stats else out
+
+
+_K8 = _contract.Kernel(__name__, '_launch_interleave', 'interleave2x2_plain')
 
 
 def interleave2x2(p00: torch.Tensor, p01: torch.Tensor, p10: torch.Tensor,
@@ -171,9 +173,7 @@ def interleave2x2(p00: torch.Tensor, p01: torch.Tensor, p10: torch.Tensor,
     """K8. p_rs [N, H, W, C] -> out [N, 2H, 2W, C] with
     out[:, 2i+r, 2j+s] = p_rs[:, i, j] (+ the per-(n, channel) fp32
     (sum, sumsq) of the output with want_stats)."""
-    if p00.is_cuda:
-        return _launch_interleave(p00, p01, p10, p11, want_stats)
-    return interleave2x2_plain(p00, p01, p10, p11, want_stats)
+    return _K8(p00, p01, p10, p11, want_stats)
 
 
 def _phase_convs(x, k_rs, bias):
@@ -208,8 +208,7 @@ def _launch_upsample(x, k_rs, bias, want_stats):
     """Launch csrc/upsample_conv_sm90.cu with the plan's phase maps, tap
     offsets and grid. The [Cout, 16, C] bf16 weight layout it reads is made
     here on every call."""
-    global UPSAMPLE_LAUNCHES
-    _build.refuse_grad('star_upsample_conv2x', x, k_rs, bias)
+    _contract.refuse_grad('star_upsample_conv2x', x, k_rs, bias)
     n, h, w, c = x.shape
     cout = k_rs.shape[-1]
     if not x.is_cuda or x.dtype != torch.bfloat16 \
@@ -231,7 +230,7 @@ def _launch_upsample(x, k_rs, bias, want_stats):
         s.data_ptr(), s2.data_ptr(), n, h, w, c, cout, int(want_stats),
         *k7_plan_args(plan), plan['grid'][0], _build.stream_ptr(dev))
     _build.check(err, 'star_upsample_conv2x')
-    UPSAMPLE_LAUNCHES += 1
+    _contract.COUNTS['upsample_conv2x'] += 1
     return (out, (s, s2)) if want_stats else out
 
 

@@ -26,9 +26,9 @@ from torch import nn
 
 from ..models.layers import Conv2d, GroupNorm, NormParams, TConvParams
 from ..ops.attention import dot_product_attention
-from ..ops.conv3x3 import (Stats, channel_stats, fused_gn_silu_conv3x3,
-                           gn_coeffs)
+from ..ops.conv3x3 import fused_gn_silu_conv3x3
 from ..ops.fused_temporal_conv import fused_gn_silu_tconv3
+from ..ops.norms import Stats, channel_stats, gn_coeffs
 from ..ops.upsample_conv import upsample_conv2x
 
 SVD_VAE_SCALING = 0.18215

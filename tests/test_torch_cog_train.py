@@ -305,10 +305,11 @@ def test_optimizer_is_optax_adamw_default():
 
 def _count_launches(monkeypatch):
     """Count, on the CPU paths, the dispatches that launch a kernel on the
-    card: K9's forward and backward and K10's (their wrappers' _run,
-    _run_bwd and _ln), the training attention's forward (K2 `with_l`) and
-    backward (K3) in its autograd Function, and any attention outside
-    autograd (K1)."""
+    card: K9's forward and backward and K10's (the plain versions their
+    dispatch runs on the CPU in place of each launch: K10's is not
+    recomputed there, autograd differentiates it), the training
+    attention's forward (K2 `with_l`) and backward (K3) in its autograd
+    Function, and any attention outside autograd (K1)."""
     import importlib
     qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
     fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
@@ -322,10 +323,10 @@ def _count_launches(monkeypatch):
             counts[name] += 1
             return fn(*a, **k)
         return run
-    monkeypatch.setattr(qr, '_run', counted('qk_ln_rope', qr._run))
-    monkeypatch.setattr(qr, '_run_bwd', counted('qk_ln_rope_bwd',
-                                                qr._run_bwd))
-    monkeypatch.setattr(fl, '_ln', counted('fused_ln', fl._ln))
+    for mod, plain, name in ((qr, 'qk_ln_rope_plain', 'qk_ln_rope'),
+                             (qr, 'qk_ln_rope_bwd_plain', 'qk_ln_rope_bwd'),
+                             (fl, 'fused_ln_plain', 'fused_ln')):
+        monkeypatch.setattr(mod, plain, counted(name, getattr(mod, plain)))
     fn = fa._FlashAttentionD64
     monkeypatch.setattr(fn, 'forward', staticmethod(
         counted('flash_packed_lse', fn.forward)))

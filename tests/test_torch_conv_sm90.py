@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke as cs
+from star_tpu_torch import ops
 from star_tpu_torch.ops import _build, conv3x3 as c3
 from star_tpu_torch.ops import fused_temporal_conv as ftc
 
@@ -437,7 +438,7 @@ def test_k5_launch_passes_the_plan(recorder, monkeypatch, f, n, c, cout, pf):
     monkeypatch.setattr(torch.Tensor, 'contiguous', contiguous)
     x = _fake(2, f, n, c)
     k3 = torch.randn(3, c, cout)
-    before = ftc.LAUNCHES
+    before = ops.launch_counts()['fused_gn_silu_tconv3']
     out, st = ftc._launch(x, torch.ones(2, c), torch.zeros(2, c), k3,
                           torch.zeros(cout), _fake(2, f, n, cout), True, pf)
     (args,) = recorder.calls
@@ -451,7 +452,7 @@ def test_k5_launch_passes_the_plan(recorder, monkeypatch, f, n, c, cout, pf):
     assert torch.equal(wk, k3.transpose(1, 2).bfloat16())
     assert args[6] == out.data_ptr() and out.shape == (2, f, n, cout)
     assert st[0].shape == ((2 * f if pf else 2), cout)
-    assert ftc.LAUNCHES == before + 1
+    assert ops.launch_counts()['fused_gn_silu_tconv3'] == before + 1
 
 
 @pytest.mark.parametrize('case', ['cpu', 'fp32', 'strided', 'c36', 'cout20',
@@ -481,7 +482,7 @@ def test_k5_launch_refuses_before_building(recorder, case):
                                                            256)])
 def test_k6_launch_passes_the_plan(recorder, n, h, w, c, cout):
     x = _fake(n, h, w, c)
-    before = c3.LAUNCHES
+    before = ops.launch_counts()['conv3x3']
     out, st = c3._launch(x, torch.ones(n, c), torch.zeros(n, c),
                          torch.zeros(cout, c, 3, 3), torch.zeros(cout),
                          None, True)
@@ -490,7 +491,7 @@ def test_k6_launch_passes_the_plan(recorder, n, h, w, c, cout):
     assert args[9:16] == (n, h, w, c, cout, 1, plan['grid'][0])
     assert args[5] is None and args[6] == out.data_ptr()
     assert st[0].shape == (n, cout)
-    assert c3.LAUNCHES == before + 1
+    assert ops.launch_counts()['conv3x3'] == before + 1
 
 
 def test_k6_launch_refuses_through_the_plan(recorder):
@@ -532,9 +533,9 @@ def test_k5_edges_on_the_card(bsz, f, n, c, cout, res, pf):
     x, a, b, w, bias, r = (None if t is None else t.cuda() for t in
                            _tconv3_inputs(bsz, f, n, c, cout, torch.bfloat16,
                                           res, seed=n + c))
-    before = ftc.LAUNCHES
+    before = ops.launch_counts()['fused_gn_silu_tconv3']
     y, st = ftc._launch(x, a, b, w, bias, r, True, pf)
-    assert ftc.LAUNCHES == before + 1
+    assert ops.launch_counts()['fused_gn_silu_tconv3'] == before + 1
     yr, sr = ftc.tconv3_plain(x, a, b, w, bias, r, True, pf)
     assert _agree(y, yr) and _stats_agree(st, sr)
 
@@ -554,9 +555,9 @@ def test_k6_edges_on_the_card(n, h, w, c, cout, res):
     x, a, b, wt, bias, r = (None if t is None else t.cuda() for t in
                             _conv_inputs(n, h, w, c, cout, torch.bfloat16,
                                          res, seed=h * w + c))
-    before = c3.LAUNCHES
+    before = ops.launch_counts()['conv3x3']
     y, st = c3._launch(x, a, b, wt, bias, r, True)
-    assert c3.LAUNCHES == before + 1
+    assert ops.launch_counts()['conv3x3'] == before + 1
     yr, sr = c3.conv3x3_plain(x, a, b, wt, bias, r, True)
     assert _agree(y, yr) and _stats_agree(st, sr)
 

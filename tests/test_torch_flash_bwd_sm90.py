@@ -20,6 +20,7 @@ import math
 import pytest
 import torch
 
+from star_tpu_torch import ops
 from star_tpu_torch.ops import _build, flash_attention as fa
 
 
@@ -181,7 +182,7 @@ def test_launch_bwd_passes_the_plan_to_the_entry_point(recorder, kv):
     q, o, do = (_fake(2, 700, 320) for _ in range(3))
     k, v = _fake(2, 1000, 320), _fake(2, 1000, 320)
     lse = _fake(2, 5, 700, dtype=torch.float32)
-    before = fa.BWD_LAUNCHES
+    before = ops.launch_counts()['flash_bwd']
     dq, dk, dv = fa._launch_bwd(q, k, v, o, lse, do, 5, 0.125, kv)
     (args,) = recorder.calls
     live = min(kv, 1000)
@@ -189,7 +190,7 @@ def test_launch_bwd_passes_the_plan_to_the_entry_point(recorder, kv):
     assert args[15:19] == (700 * 320, 1000 * 320, 320, 0.125)
     assert (args[6], args[7], args[8]) == (dq.data_ptr(), dk.data_ptr(),
                                            dv.data_ptr())
-    assert fa.BWD_LAUNCHES == before + 1
+    assert ops.launch_counts()['flash_bwd'] == before + 1
     assert dq.shape == q.shape and dk.shape == k.shape
     for t in (dk, dv):
         assert float(t[:, live:].abs().sum()) == 0.0
@@ -228,14 +229,14 @@ def test_launch_d512_passes_the_plan_to_the_entry_point(recorder, kv):
     the strides of [B, S, 1, 512] and c, and counts one d=512 launch."""
     q = _fake(2, 700, 1, 512)
     k, v = _fake(2, 1000, 1, 512), _fake(2, 1000, 1, 512)
-    before = fa.D512_LAUNCHES
+    before = ops.launch_counts()['flash_d512']
     out = fa._launch(q, k, v, 1, 512, 0.25, kv)
     (args,) = recorder.calls
     assert args[4:9] == (2, 1, 700, 1000, min(kv, 1000))
     assert args[9:18] == (700 * 512, 1000 * 512, 1000 * 512, 700 * 512,
                           512, 512, 512, 512, 0.25)
     assert args[3] == out.data_ptr() and out.shape == q.shape
-    assert fa.D512_LAUNCHES == before + 1
+    assert ops.launch_counts()['flash_d512'] == before + 1
     with pytest.raises(ValueError):          # kv_valid 0: the plan refuses
         fa._launch(q, k, v, 1, 512, 0.25, 0)
     assert len(recorder.calls) == 1
@@ -266,9 +267,9 @@ def test_k3_edges_on_the_card(bsz, s, c, kv):
     q, do, k, v = bf(s), bf(s), bf(s), bf(s)
     h = c // 64
     o, lse = fa._launch(q, k, v, h, 64, 0.125 * fa.LOG2E, kv, want_lse=True)
-    before = fa.BWD_LAUNCHES
+    before = ops.launch_counts()['flash_bwd']
     got = fa._launch_bwd(q, k, v, o, lse, do, h, 0.125, kv)
-    assert fa.BWD_LAUNCHES == before + 1
+    assert ops.launch_counts()['flash_bwd'] == before + 1
     want = fa.flash_bwd_plain(q, k[:, :kv], v[:, :kv], o, lse, do, h, 0.125)
     assert _agree(got[0], want[0])
     for g_, w_ in zip(got[1:], want[1:]):
@@ -290,8 +291,8 @@ def test_d512_edges_on_the_card(bsz, s, kv):
     g = torch.Generator(device='cuda').manual_seed(s + kv)
     q, k, v = (torch.randn(bsz, s, 1, 512, generator=g,
                            device='cuda').bfloat16() for _ in range(3))
-    before = fa.D512_LAUNCHES
+    before = ops.launch_counts()['flash_d512']
     out = fa._launch(q, k, v, 1, 512, fa.LOG2E / math.sqrt(512), kv)
-    assert fa.D512_LAUNCHES == before + 1
+    assert ops.launch_counts()['flash_d512'] == before + 1
     ref = fa.attention_plain(q, k[:, :kv], v[:, :kv], 1 / math.sqrt(512))
     assert _agree(out, ref)

@@ -18,6 +18,7 @@ import math
 import pytest
 import torch
 
+from star_tpu_torch import ops
 from star_tpu_torch.ops import _build, flash_attention as fa
 
 # (B, S, H*64, kv_valid or None, prescaled): S not a multiple of 128, S
@@ -137,7 +138,8 @@ def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, kv,
     fake = lambda *s: torch.Tensor._make_subclass(
         _FakeCuda, torch.zeros(*s, dtype=torch.bfloat16))
     q, k, v = fake(2, 700, 320), fake(2, 1000, 320), fake(2, 1000, 320)
-    before = fa.LSE_LAUNCHES if want_lse else fa.PACKED_LAUNCHES
+    name = 'flash_packed_lse' if want_lse else 'flash_packed'
+    before = ops.launch_counts()[name]
     res = fa._launch(q, k, v, 5, 64, 0.5, kv, want_lse=want_lse)
     (args,) = rec.calls
     assert args[5:10] == (2, 5, 700, 1000, min(kv, 1000))
@@ -147,10 +149,10 @@ def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, kv,
         out, lse = res
         assert lse.shape == (2, 5, 700) and lse.dtype == torch.float32
         assert args[4] == lse.data_ptr()
-        assert fa.LSE_LAUNCHES == before + 1
     else:
         out = res
-        assert args[4] is None and fa.PACKED_LAUNCHES == before + 1
+        assert args[4] is None
+    assert ops.launch_counts()[name] == before + 1
     assert out.shape == q.shape and args[3] == out.data_ptr()
     with pytest.raises(ValueError):      # kv_valid 0: the plan refuses
         fa._launch(q, k, v, 5, 64, 0.5, 0)
@@ -176,9 +178,9 @@ def test_k1_edges_on_the_card(bsz, s, c, kv, pre):
         a, b = a.float(), b.float()
         return bool((a - b).abs().max() <= 2e-2 * b.abs().max()
                     and (a - b).norm() <= 1e-2 * b.norm())
-    before = fa.PACKED_LAUNCHES
+    before = ops.launch_counts()['flash_packed']
     out = fa.flash_attention_packed(q, k, v, h, kv_valid=kv, prescaled=pre)
-    assert fa.PACKED_LAUNCHES == before + 1
+    assert ops.launch_counts()['flash_packed'] == before + 1
     ref = fa.flash_attention_packed_plain(q, k, v, h, 0.125, kv, pre)
     assert agree(out, ref)
     out, lse = fa._launch(q, k, v, h, 64, 1.0 if pre else 0.125 * fa.LOG2E,

@@ -177,11 +177,12 @@ def test_k11_without_residual_is_k10():
 
 
 @pytest.mark.parametrize('kind', ['k10', 'k10_gated', 'k11', 'k11_gated'])
-def test_function_gradients_match_jax_grad(kind):
-    """The autograd Functions driven with plain=True (their CPU forward,
-    and the plain recompute backward) against jax.grad through the JAX
-    custom VJPs: gradients of x (y), resid, scale, bias and gate_w under
-    random cotangents of every output."""
+def test_function_gradients_match_jax_grad(kind, monkeypatch):
+    """The recompute Function that K10 and K11 run under on the card,
+    driven through CUDA-looking tensors (the launchers replaced by their
+    plain versions on the host, so that no library is built), against
+    jax.grad through the JAX custom VJPs: gradients of x (y), resid,
+    scale, bias and gate_w under random cotangents of every output."""
     gated, resid = kind.endswith('gated'), kind.startswith('k11')
     x, res, scale, bias, gw = case(320, gated, resid, seed=7)
     r = rng(8)
@@ -204,17 +205,25 @@ def test_function_gradients_match_jax_grad(kind):
     want = jax.grad(jloss, argnums=tuple(range(len(args))))(
         *(jnp.asarray(a) for a in args))
 
-    leaves = [tx(a).requires_grad_() for a in args]
+    host = lambda t: t.as_subclass(torch.Tensor)
+    card = lambda t: torch.Tensor._make_subclass(_FakeCuda, t)
+    monkeypatch.setattr(fl, '_launch_ln', lambda x, *a: card(
+        fl.fused_ln_plain(host(x), *a)))
+    monkeypatch.setattr(fl, '_launch_resid_ln', lambda y, sc, bi, r, *a: tuple(
+        map(card, fl.fused_resid_ln_plain(host(y), sc, bi, host(r), *a))))
+    leaves = [torch.Tensor._make_subclass(_FakeCuda, tx(a), True)
+              if a.ndim == 3 else tx(a).requires_grad_() for a in args]
     if resid:
         y_, r_, s_, b_ = leaves[:4]
-        out, xr = fl._FusedResidLN.apply(y_, r_, s_, b_,
-                                         leaves[4] if gated else None, 1e-5,
-                                         True)
-        outs, cts = [out, xr], [tx(ct), tx(ct_xr)]
+        outs = fl.fused_resid_ln(y_, s_, b_, r_, leaves[4] if gated else None,
+                                 1e-5)
+        cts = [tx(ct), tx(ct_xr)]
     else:
-        out = fl._FusedLN.apply(leaves[0], leaves[1], leaves[2],
-                                leaves[3] if gated else None, 1e-5, True)
-        outs, cts = [out], [tx(ct)]
+        outs = [fl.fused_ln(leaves[0], leaves[1], leaves[2], 1e-5,
+                            leaves[3] if gated else None)]
+        cts = [tx(ct)]
+    assert all(type(o.grad_fn).__name__ == '_RecomputeBackward'
+               for o in outs)
     got = torch.autograd.grad(outs, leaves, cts)
     for g, w in zip(got, want):
         assert_close(g, w)
@@ -298,4 +307,4 @@ def test_wide_path_refuses_misaligned_rows(c, offset):
     with pytest.raises(ValueError, match='aligned'):
         fl._launch_ln(x, sc, bi, 1e-5, None)
     with pytest.raises(ValueError, match='aligned'):
-        fl._launch_resid_ln(x, x, sc, bi, 1e-5, None)
+        fl._launch_resid_ln(x, sc, bi, x, None, 1e-5)

@@ -1,7 +1,9 @@
 """K12, the UNet's GEGLU (star_tpu_torch/ops/geglu.py,
 csrc/geglu.cu): the plain version against the expression the UNet ran
-before, the autograd Function against eager autograd, the launcher's
-arguments and refusals on CUDA-looking CPU tensors, the launches per
+before, the feed-forward's gradients against eager autograd, the
+launcher's arguments and refusals on CUDA-looking CPU tensors (its routing
+and its recompute backward are rows of the kernel contract's table,
+tests/test_torch_guards.py), the launches per
 shape from the full-depth models at narrow widths (chip_smoke.py's
 table), and, on a card, the kernel against the plain version bit for bit.
 No JAX: the `cuda` cases run on the card with --noconftest."""
@@ -72,9 +74,9 @@ def test_plain_version_on_a_tensor_parallel_shard(ranks):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_feedforward_and_its_gradients_equal_eager_autograd(dtype):
-    """FeedForwardGEGLU through the autograd Function (plain forward on the
-    CPU, plain recompute in the backward) against the old forward under
-    eager autograd: the output and every gradient bit for bit."""
+    """FeedForwardGEGLU on the CPU (the plain version, which autograd
+    differentiates) against the old forward under eager autograd: the
+    output and every gradient bit for bit."""
     torch.manual_seed(0)
     ff = FeedForwardGEGLU(16).to(dtype)
     x = (torch.randn(2, 7, 16) * 2).to(dtype).requires_grad_()
@@ -101,13 +103,9 @@ class _FakeCuda(torch.Tensor):
         return True
 
 
-def _fake(*shape, dtype=torch.bfloat16, requires_grad=False):
-    return torch.Tensor._make_subclass(
-        _FakeCuda, torch.randn(*shape).to(dtype), requires_grad)
-
-
-def _refuse(*a, **k):
-    raise AssertionError('a CUDA tensor reached the plain version')
+def _fake(*shape, dtype=torch.bfloat16):
+    return torch.Tensor._make_subclass(_FakeCuda,
+                                       torch.randn(*shape).to(dtype))
 
 
 class _Library:
@@ -131,13 +129,12 @@ def library(monkeypatch):
                                         ((1, 4), 2560)])
 def test_launch_hands_the_entry_point_rows_and_inner(library, lead, inner):
     p = _fake(*lead, 2 * inner)
-    before = gg.LAUNCHES
-    out = gg._launch(p, inner)
+    before = ops.launch_counts()['geglu']
+    out = gg._launch(p)
     rows = int(torch.tensor(lead).prod())
     assert library.calls == [(p.data_ptr(), out.data_ptr(), rows, inner, 7)]
     assert out.shape == (*lead, inner) and out.dtype == torch.bfloat16
-    assert gg.LAUNCHES == before + 1
-    assert ops.launch_counts()['geglu'] == gg.LAUNCHES
+    assert ops.launch_counts()['geglu'] == before + 1
 
 
 def _refusal_case(case):
@@ -158,48 +155,8 @@ def _refusal_case(case):
 def test_launcher_refuses_what_the_kernel_does_not_take(library, case):
     p = _refusal_case(case)
     with pytest.raises(ValueError):
-        gg._launch(p, p.shape[-1] // 2)
+        gg._launch(p)
     assert library.calls == []
-
-
-def test_cuda_tensors_reach_the_kernel_and_cpu_tensors_the_plain_version(
-        monkeypatch):
-    launched = []
-    monkeypatch.setattr(gg, '_launch', lambda p, inner: (
-        launched.append(inner), p[..., :inner])[1])
-    monkeypatch.setattr(gg, 'geglu_plain', _refuse)
-    gg.geglu(_fake(4, 5, 64))
-    assert launched == [32]
-    monkeypatch.undo()
-    monkeypatch.setattr(gg, '_launch', _refuse)
-    p = _inputs(6, 16, torch.float32)
-    assert torch.equal(gg.geglu(p), _old_expression(p))
-
-
-def test_under_grad_the_kernel_runs_forward_and_the_plain_version_backward(
-        monkeypatch):
-    """A CUDA tensor that requires grad: the forward launches K12 (inside
-    the Function, grad mode off) and the plain version runs only in the
-    backward, once, on the saved p."""
-    events, phase = [], ['forward']
-    real_plain = gg.geglu_plain
-
-    def plain(p):
-        assert phase[0] == 'backward', 'the plain version ran forward'
-        events.append('plain')
-        return real_plain(p)
-    monkeypatch.setattr(gg, 'geglu_plain', plain)
-    monkeypatch.setattr(gg, '_launch', lambda p, inner: (
-        events.append('k12'), torch.zeros(*p.shape[:-1], inner))[1])
-    p = _fake(3, 16, dtype=torch.float32, requires_grad=True)
-    out = gg.geglu(p)
-    phase[0] = 'backward'
-    ct = torch.randn(3, 8)
-    (dp,) = torch.autograd.grad(out, (p,), ct)
-    assert events == ['k12', 'plain']
-    q = p.detach().clone().requires_grad_()
-    (want,) = torch.autograd.grad(_old_expression(q), (q,), ct)
-    assert torch.equal(dp, want)
 
 
 def _record_geglu(monkeypatch):
@@ -279,7 +236,7 @@ def test_launcher_raises_on_the_card(case):
                                 device='cuda').t(),
          'inner12': torch.zeros(3, 24, dtype=torch.bfloat16, device='cuda'),
          }[case]
-    before = gg.LAUNCHES
+    before = ops.launch_counts()['geglu']
     with pytest.raises(ValueError):
         gg.geglu(p)
-    assert gg.LAUNCHES == before
+    assert ops.launch_counts()['geglu'] == before

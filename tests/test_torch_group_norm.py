@@ -1,10 +1,11 @@
 """K13, the GroupNorm kernel (star_tpu_torch/ops/norms.py,
 csrc/group_norm.cu): the plain version against the expression the models
-ran before, the routing of CUDA-looking and CPU tensors, the launchers'
-arguments and refusals with a fake library, the autograd Function against
-eager autograd, the launches per shape from the full-depth models at
-narrow widths (chip_smoke.py's tables), and, on a card, the kernel against
-the eager passes. No JAX: the `cuda` cases run on the card with
+ran before, the launchers' arguments and refusals with a fake library (the
+routing of CUDA-looking and CPU tensors and the recompute backward are
+rows of the kernel contract's table, tests/test_torch_guards.py), the
+launches per shape from the full-depth models at narrow widths
+(chip_smoke.py's tables), and, on a card, the kernel against the eager
+passes. No JAX: the `cuda` cases run on the card with
 --noconftest."""
 
 import sys
@@ -18,7 +19,6 @@ from star_tpu_torch import ops
 from star_tpu_torch.models.layers import GroupNorm
 from star_tpu_torch.models.unet.blocks import silu32
 from star_tpu_torch.ops import _build
-from star_tpu_torch.ops import conv3x3 as c3
 from star_tpu_torch.ops import norms as nm
 
 
@@ -193,7 +193,7 @@ def test_groups_wider_than_the_kernel_takes_run_the_plain_version(library):
 def test_apply_launcher_hands_the_entry_point_its_shape(library):
     x = _fake(4, 33, 320)
     coeffs = [_fake(4, 320) for _ in range(3)]
-    before = nm.LAUNCHES
+    before = ops.launch_counts()['group_norm']
     y = nm._launch_apply(x, *coeffs, True)
     nm._launch_apply(x, *coeffs, False)
     (k1, args1), (_, args2) = library.calls
@@ -201,7 +201,7 @@ def test_apply_launcher_hands_the_entry_point_its_shape(library):
     assert args1 == (x.data_ptr(), *(t.data_ptr() for t in coeffs),
                      y.data_ptr(), 4, 33, 320, 6, 1, 132, 7)
     assert args2[-4:-2] == (6, 0)
-    assert nm.LAUNCHES == before + 2 == ops.launch_counts()['group_norm']
+    assert ops.launch_counts()['group_norm'] == before + 2
 
 
 def _refusal_case(case):
@@ -249,7 +249,7 @@ def test_group_norm_and_channel_stats_raise_on_what_the_kernel_does_not_take(
         nm.group_norm(x, torch.ones(c), torch.zeros(c), 4)
     if case != 'strided' and not grad:
         with pytest.raises(ValueError):
-            c3.channel_stats(x)
+            nm.channel_stats(x)
     assert library.calls == []
 
 
@@ -289,100 +289,6 @@ def _stub_launchers(monkeypatch, events):
     monkeypatch.setattr(nm, '_launch_apply', apply)
 
 
-def test_cuda_tensors_reach_the_kernel_and_others_the_plain_version(
-        monkeypatch):
-    """A bf16 CUDA tensor the kernel takes runs K13 (one statistics launch
-    with the fold, one apply) and never the plain version; a CUDA tensor it
-    does not take raises before any launch; a CPU tensor runs the plain
-    version."""
-    events = []
-    _stub_launchers(monkeypatch, events)
-    real_plain = nm.group_norm_plain
-    monkeypatch.setattr(nm, 'group_norm_plain', _refuse)
-    x = _fake(2, 3, 5, 64)
-    y = nm.group_norm(x, torch.ones(64), torch.zeros(64), 32, 1e-6,
-                      silu=True)
-    assert y.shape == x.shape
-    assert events == [('stats', (2, 15, 64), True),
-                      ('apply', (2, 15, 64), True)]
-    events.clear()
-    for t in (_fake(2, 3, 64, dtype=torch.float32), _fake(2, 3, 36),
-              _fake(2, 64, 3).transpose(1, 2)):
-        with pytest.raises(ValueError):
-            nm.group_norm(t, torch.ones(t.shape[-1]),
-                          torch.zeros(t.shape[-1]), 4)
-    assert events == []
-    plain = []
-    monkeypatch.setattr(nm, 'group_norm_plain', lambda *a: (
-        plain.append(a[0].shape), real_plain(*a))[1])
-    nm.group_norm(torch.randn(2, 3, 64).bfloat16(), torch.ones(64),
-                  torch.zeros(64))
-    assert plain == [(2, 3, 64)] and events == []
-
-
-def test_channel_stats_takes_the_kernel_outside_autograd(monkeypatch):
-    """conv3x3.channel_stats: K13's statistics alone for a bf16 CUDA
-    tensor; the plain sums on the CPU and when a gradient is recorded
-    (K5's plain backward differentiates them)."""
-    events = []
-    _stub_launchers(monkeypatch, events)
-    x = _fake(2, 4, 6, 64)
-    s, s2 = c3.channel_stats(x)
-    assert events == [('stats', (2, 24, 64), False)]
-    assert s.shape == s2.shape == (2, 64)
-    events.clear()
-    xg = _fake(2, 4, 6, 64, requires_grad=True)
-    s, _ = c3.channel_stats(xg)
-    assert events == [] and s.requires_grad
-    cpu = torch.randn(2, 4, 6, 64).bfloat16()
-    s, s2 = c3.channel_stats(cpu)
-    assert events == []
-    assert torch.equal(s, torch.sum(cpu.reshape(2, -1, 64), 1,
-                                    dtype=torch.float32))
-
-
-@pytest.mark.parametrize('silu', [False, True])
-def test_under_grad_the_kernel_runs_forward_and_the_plain_version_backward(
-        monkeypatch, silu):
-    """A CUDA tensor that requires grad: the forward launches K13 (inside
-    the Function) and the plain version runs only in the backward, once,
-    on the saved x, scale and bias; the gradients are eager autograd's of
-    the plain version, bit for bit."""
-    events, phase = [], ['forward']
-    _stub_launchers(monkeypatch, events)
-    real_plain = nm.group_norm_plain
-
-    def plain(*a):
-        assert phase[0] == 'backward', 'the plain version ran forward'
-        events.append(('plain',))
-        return real_plain(*a)
-    monkeypatch.setattr(nm, 'group_norm_plain', plain)
-    x0, scale0, bias0 = _inputs((2, 3, 4, 64), torch.bfloat16, seed=3)
-    x = torch.Tensor._make_subclass(_FakeCuda, x0, True)
-    scale = scale0.clone().requires_grad_()
-    bias = bias0.clone().requires_grad_()
-    out = nm.group_norm(x, scale, bias, 32, 1e-6, silu)
-    assert [e[0] for e in events] == ['stats', 'apply']
-    phase[0] = 'backward'
-    ct = torch.randn(2, 3, 4, 64).bfloat16()
-    got = torch.autograd.grad(out, (x, scale, bias), ct)
-    assert [e[0] for e in events] == ['stats', 'apply', 'plain']
-    ins = [t.clone().requires_grad_() for t in (x0, scale0, bias0)]
-    want = torch.autograd.grad(real_plain(*ins, 32, 1e-6, silu), ins, ct)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-
-
-def test_under_grad_only_the_inputs_that_need_it_get_a_gradient(
-        monkeypatch):
-    _stub_launchers(monkeypatch, [])
-    x = _fake(2, 3, 64, requires_grad=True)
-    scale, bias = torch.ones(64), torch.zeros(64, requires_grad=True)
-    out = nm.group_norm(x, scale, bias, silu=True)
-    dx, db = torch.autograd.grad(out.float().sum(), (x, bias))
-    assert dx.shape == x.shape and db.shape == (64,)
-
-
 def test_apply_launcher_opens_the_kernel_range(library):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -401,8 +307,12 @@ def recorded(monkeypatch):
     the autograd graph) and the outputs handed back as plain tensors; the
     kernel's conditions but the device and dtype (the models run in fp32 on
     the CPU), the launchers replaced by the stand-ins. The statistics that
-    the plain versions of K5, K6, K7 and K8 take of their own outputs on
-    the CPU are left out: those kernels emit them on the card."""
+    the plain versions of K6, K7 and K8 take of their own outputs on the
+    CPU are left out: those kernels emit them on the card. K5 runs as on
+    the card too, through its recompute Function under grad, its launcher
+    replaced by the plain version on the host tensors (whose output
+    statistics stay on the host): it takes its input's statistics itself,
+    in the Function's forward, where grad is off."""
     from star_tpu_torch.models import layers
     from star_tpu_torch.models.unet import blocks
     from star_tpu_torch.ops import fused_temporal_conv, upsample_conv
@@ -413,7 +323,7 @@ def recorded(monkeypatch):
 
     def stats(x3, fold=None):
         # frame 1 is channel_stats, frame 2 its stand-in below, frame 3
-        # the function that called it
+        # the function that called it (K6-K8's plain versions)
         if (fold is None
                 and sys._getframe(3).f_code.co_name.endswith('_plain')):
             return (torch.sum(x3, 1, dtype=torch.float32),
@@ -431,8 +341,23 @@ def recorded(monkeypatch):
         return call
     for mod in (layers, blocks):
         monkeypatch.setattr(mod, 'group_norm', on_card(nm.group_norm))
-    stats_on_card = on_card(c3.channel_stats)
-    for mod in (c3, fused_temporal_conv, upsample_conv, svd_vae):
+    tconv3_plain = fused_temporal_conv.tconv3_plain
+
+    def tconv_launch(*a):
+        y, st = tconv3_plain(*(t.as_subclass(torch.Tensor)
+                               if isinstance(t, torch.Tensor) else t
+                               for t in a))
+        return y.as_subclass(_FakeCuda), st
+    monkeypatch.setattr(fused_temporal_conv, '_launch', tconv_launch)
+    k5 = fused_temporal_conv.fused_gn_silu_tconv3
+
+    def k5_on_card(x, *a, **k):
+        y, st = k5(x.as_subclass(_FakeCuda), *a, **k)
+        return y.as_subclass(torch.Tensor), st
+    for mod in (blocks, svd_vae):
+        monkeypatch.setattr(mod, 'fused_gn_silu_tconv3', k5_on_card)
+    stats_on_card = on_card(nm.channel_stats)
+    for mod in (nm, upsample_conv, svd_vae):
         monkeypatch.setattr(mod, 'channel_stats', stats_on_card)
     monkeypatch.setattr(nm, 'kernel_takes', lambda x, num_groups=None: (
         x.ndim >= 2 and x.shape[-1] % 8 == 0
@@ -571,7 +496,7 @@ def test_statistics_and_the_whole_group_norm_on_the_card(n, r, c):
     g = torch.Generator(device='cuda').manual_seed(r + c)
     x, scale, bias = cs.gn_inputs(n, r, c, 'cuda', g)
     groups = 32 if c % 32 == 0 else 1
-    assert cs.gn_stats_err(x, c3.channel_stats(x)) <= 1e-6
+    assert cs.gn_stats_err(x, nm.channel_stats(x)) <= 1e-6
     out = nm.group_norm(x, scale, bias, groups, 1e-6, silu=True)
     ref = nm.group_norm_plain(x, scale, bias, groups, 1e-6, silu=True)
     n_diff, ulps = cs.gn_ulps(out, ref)

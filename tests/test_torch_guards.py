@@ -8,13 +8,15 @@
     the random-weight models, the pipelines, load_star_models /
     load_cog_models, setup_seed and the main of inference_sr, sample_sr,
     sample_t2v and serve; warm_cache needs nvcc, not a card;
-  * a CUDA tensor never reaches a kernel's plain version: each wrapper
-    launches (here a counting stand-in for the launcher) or raises;
-  * under autograd the differentiable kernels launch forward and backward
-    (K2 `with_l` then K3; K4 and K5 launch forward and recompute their
-    plain version only inside the backward), and the kernels with no
-    backward (K2 d=512, K6, K7, K8) raise instead of returning a result
-    cut off from autograd;
+  * the kernel contract (star_tpu_torch/ops/_contract.py), over one table
+    with a row per public op path (ROWS): a CUDA tensor reaches its
+    launchers (here counting stand-ins) and never a plain version; a CPU
+    tensor runs the plain version and never a launcher; under autograd the
+    declared backward runs (a backward kernel, the plain version
+    recomputed only inside the backward, or a refusal by the launcher),
+    and only the inputs that need a gradient get one; the launch counts
+    reset; and the launchers the benchmark's LaunchLog replaces on their
+    modules are the ones the public ops call;
   * the collectives of parallel/ refuse a tensor their backend does not
     take (NCCL takes CUDA tensors, gloo CPU ones) and let a failed
     collective raise: no fallback to another backend or to the host;
@@ -22,12 +24,25 @@
 """
 
 import ast
+import collections
 import importlib
 import os
 
 import numpy as np
 import pytest
 import torch
+
+from star_tpu_torch import ops
+from star_tpu_torch.ops import _build
+from star_tpu_torch.ops import conv3x3 as c3
+from star_tpu_torch.ops import flash_attention as fa
+from star_tpu_torch.ops import fused_ln as fl
+from star_tpu_torch.ops import fused_temporal_conv as ftc
+from star_tpu_torch.ops import geglu as gg
+from star_tpu_torch.ops import norms as nm
+from star_tpu_torch.ops import qk_ln_rope as qr
+from star_tpu_torch.ops import temporal_attention as ta
+from star_tpu_torch.ops import upsample_conv as uc
 
 ROOT = os.path.join(os.path.dirname(__file__), '..')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'star_tpu', 'tools')
@@ -307,193 +322,475 @@ def _refuse(*a, **k):
     raise AssertionError('a CUDA tensor reached a plain version')
 
 
-@pytest.mark.parametrize('name', ['packed', 'd512', 'temporal', 'tconv',
-                                  'conv3x3', 'upsample_conv2x',
-                                  'interleave2x2', 'upsample_phases',
-                                  'group_norm', 'channel_stats'])
-def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
-    fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
-    ta = importlib.import_module('star_tpu_torch.ops.temporal_attention')
-    ftc = importlib.import_module('star_tpu_torch.ops.fused_temporal_conv')
-    c3 = importlib.import_module('star_tpu_torch.ops.conv3x3')
-    uc = importlib.import_module('star_tpu_torch.ops.upsample_conv')
-    nm = importlib.import_module('star_tpu_torch.ops.norms')
-    launched = []
-    want = [name]
+# ------------------------------------------------------- the kernel contract
+#
+# One row per public op path: how to call it, what it launches on a CUDA
+# tensor, and its declared backward (star_tpu_torch/ops/_contract.py):
+# 'kernel' (a backward kernel in the op's own Function), 'recompute' (the
+# shared Function: the plain version recomputed in the backward),
+# 'refuse' (the launcher raises under grad) or 'plain' (channel_stats:
+# the plain sums under grad, which K5's recompute differentiates).
 
-    def launcher(kind, returns_stats):
-        def launch(*a, **k):
-            launched.append(kind)
-            return (a[0], None) if returns_stats else a[0]
+
+class _Make:
+    """The tensors of one call: `dev` ones CUDA-looking (FakeCuda) when
+    `cuda`, the others plain CPU tensors; of the `grad` candidates, none,
+    all, every other one from the first, or the first alone (`which`)
+    require grad."""
+
+    def __init__(self, cuda, which=None, dtype=torch.float32):
+        self.cuda, self.which, self.dtype = cuda, which, dtype
+        self.g = torch.Generator().manual_seed(0)
+        self.n = 0
+
+    def __call__(self, *shape, dev=False, grad=False, dtype=None):
+        t = torch.randn(*shape, generator=self.g).to(dtype or self.dtype)
+        need = grad and {'all': True, 'every_other': self.n % 2 == 0,
+                         'first': self.n == 0}.get(self.which, False)
+        self.n += bool(grad)
+        return _fake(t, need) if dev and self.cuda else t.requires_grad_(need)
+
+
+def _tconv_chain(t):
+    x = t(1, 4, 8, 64, dev=True, grad=True)
+    sc, bi = t(64, grad=True), t(64, grad=True)
+    w, b = t(3, 1, 64, 64, grad=True), t(64, grad=True)
+    y, st = ftc.fused_gn_silu_tconv3(x, sc, bi, w, b, want_stats=True)
+    out, _ = ftc.fused_gn_silu_tconv3(y, sc, bi, w, b, stats=st, residual=y)
+    return (out,), (x, sc, bi, w, b)
+
+
+def _qkv(t, *shape):
+    return tuple(t(*shape, dev=True, grad=True) for _ in range(3))
+
+
+def _ln(t, gated, resid):
+    y = t(2, 5, 128, dev=True, grad=True)
+    r = t(2, 5, 128, dev=True, grad=True) if resid else None
+    sc, bi = t(128, grad=True), t(128, grad=True)
+    gw = t(2, grad=True) if gated else None
+    inputs = tuple(a for a in (y, r, sc, bi, gw) if a is not None)
+    if resid:
+        return fl.fused_resid_ln(y, sc, bi, r, gw), inputs
+    return (fl.fused_ln(y, sc, bi, gate_w=gw),), inputs
+
+
+def _gn(t, silu):
+    x = t(2, 3, 4, 64, dev=True, grad=True, dtype=torch.bfloat16)
+    sc, bi = t(64, grad=True), t(64, grad=True)
+    return (nm.group_norm(x, sc, bi, 32, 1e-6, silu),), (x, sc, bi)
+
+
+def _qk(t):
+    x, sc, bi = t(1, 5, 128, dev=True, grad=True), t(64, grad=True), \
+        t(64, grad=True)
+    out = qr.qk_ln_rope(x, sc, bi, t(5, 64), t(5, 64), 2, fold_scale=0.5)
+    return (out,), (x, sc, bi)
+
+
+def _packed(t):
+    q, k, v = _qkv(t, 1, 8, 128)
+    return (fa.flash_attention_packed(q, k, v, 2, kv_valid=6),), (q, k, v)
+
+
+def _d64(t):
+    q, k, v = _qkv(t, 1, 8, 2, 64)
+    return (fa.flash_attention(q, k, v),), (q, k, v)
+
+
+def _temporal(t):
+    q, k, v = _qkv(t, 1, 4, 8, 64)
+    return (ta.temporal_attention(q, k, v, 1),), (q, k, v)
+
+
+def _geglu(t):
+    p = t(3, 16, dev=True, grad=True)
+    return (gg.geglu(p),), (p,)
+
+
+def _d512(t):
+    q = t(1, 8, 1, 512, dev=True, grad=True)
+    return (fa.flash_attention(q, q, q),), (q,)
+
+
+def _conv3x3(t):
+    x = t(1, 5, 8, 128, dev=True, grad=True)
+    return c3.fused_gn_silu_conv3x3(x, t(128), t(128), t(256, 128, 3, 3),
+                                    t(256), want_stats=True), (x,)
+
+
+def _upsample(t, c, cout):
+    x = t(1, 3, 4, c, dev=True, grad=True)
+    return (uc.upsample_conv2x(x, t(cout, c, 3, 3), t(cout)),), (x,)
+
+
+def _interleave(t):
+    p = t(1, 4, 8, 16, dev=True, grad=True)
+    return uc.interleave2x2(p, p, p, p, want_stats=True), (p,)
+
+
+def _channel_stats(t):
+    x = t(2, 4, 6, 64, dev=True, grad=True)
+    return nm.channel_stats(x), (x,)
+
+
+Row = collections.namedtuple(
+    'Row', 'call launches backward grad_launches op cpu_plain')
+TCONV = ['gn_stats', 'fused_gn_silu_tconv3', 'fused_gn_silu_tconv3']
+GN = ['gn_stats', 'group_norm']
+
+ROWS = {
+    'packed': Row(_packed, ['flash_packed'], 'kernel',
+                  (['flash_packed_lse'], ['flash_bwd']), None,
+                  (fa, 'flash_attention_packed_plain')),
+    'd64': Row(_d64, ['flash_packed'], 'kernel',
+               (['flash_packed_lse'], ['flash_bwd']), None,
+               (fa, 'attention_plain')),
+    'd512': Row(_d512, ['flash_d512'], 'refuse', None, None,
+                (fa, 'attention_plain')),
+    'temporal': Row(_temporal, ['temporal_attention'], 'recompute',
+                    (['temporal_attention'], ['temporal_attention_plain']),
+                    (ta, '_K4'), (ta, 'temporal_attention_plain')),
+    # x's statistics (K13), then two stages, the second on the first's
+    # threaded statistics; the backward recomputes each stage once
+    'tconv': Row(_tconv_chain, TCONV, 'recompute',
+                 (TCONV, ['_stage_plain', 'tconv3_plain'] * 2),
+                 (ftc, '_K5'), (ftc, 'tconv3_plain')),
+    # x's statistics (K13), then K6
+    'conv3x3': Row(_conv3x3, ['gn_stats', 'conv3x3'], 'refuse', None, None,
+                   (c3, 'conv3x3_plain')),
+    'upsample_conv2x': Row(lambda t: _upsample(t, 64, 128),
+                           ['upsample_conv2x'], 'refuse', None, None,
+                           (uc, 'interleave2x2_plain')),
+    # widths K7 does not take: the phase convs, then K8
+    'upsample_phases': Row(lambda t: _upsample(t, 32, 32), ['interleave2x2'],
+                           'refuse', None, None, (uc, 'interleave2x2_plain')),
+    'interleave2x2': Row(_interleave, ['interleave2x2'], 'refuse', None,
+                         None, (uc, 'interleave2x2_plain')),
+    'qk_ln_rope': Row(_qk, ['qk_ln_rope'], 'kernel',
+                      (['qk_ln_rope'], ['qk_ln_rope_bwd']), None,
+                      (qr, 'qk_ln_rope_plain')),
+    'fused_ln': Row(lambda t: _ln(t, False, False), ['fused_ln'],
+                    'recompute', (['fused_ln'], ['fused_ln_plain']),
+                    (fl, '_K10'), (fl, 'fused_ln_plain')),
+    'fused_ln_gated': Row(lambda t: _ln(t, True, False), ['fused_ln'],
+                          'recompute', (['fused_ln'], ['fused_ln_plain']),
+                          (fl, '_K10'), (fl, 'fused_ln_plain')),
+    'fused_resid_ln': Row(lambda t: _ln(t, False, True), ['fused_resid_ln'],
+                          'recompute', (['fused_resid_ln'],
+                                        ['fused_resid_ln_plain']),
+                          (fl, '_K11'), (fl, 'fused_resid_ln_plain')),
+    'fused_resid_ln_gated': Row(lambda t: _ln(t, True, True),
+                                ['fused_resid_ln'], 'recompute',
+                                (['fused_resid_ln'],
+                                 ['fused_resid_ln_plain']),
+                                (fl, '_K11'), (fl, 'fused_resid_ln_plain')),
+    'geglu': Row(_geglu, ['geglu'], 'recompute', (['geglu'], ['geglu_plain']),
+                 (gg, '_K12'), (gg, 'geglu_plain')),
+    # K13: statistics with the fold, then the apply
+    'group_norm': Row(lambda t: _gn(t, False), GN, 'recompute',
+                      (GN, ['group_norm_plain']), (nm, '_K13'),
+                      (nm, 'group_norm_plain')),
+    'group_norm_silu': Row(lambda t: _gn(t, True), GN, 'recompute',
+                           (GN, ['group_norm_plain']), (nm, '_K13'),
+                           (nm, 'group_norm_plain')),
+    # K13's statistics alone
+    'channel_stats': Row(_channel_stats, ['gn_stats'], 'plain', ([], []),
+                         None, None),
+}
+DIFFERENTIABLE = [k for k, r in ROWS.items() if r.backward != 'refuse']
+RECOMPUTED = [k for k, r in ROWS.items() if r.backward == 'recompute']
+
+# every plain version a kernel module dispatches to
+PLAINS = ((fa, 'attention_plain'), (fa, 'flash_attention_packed_plain'),
+          (fa, 'flash_bwd_plain'), (ta, 'temporal_attention_plain'),
+          (ftc, 'tconv3_plain'), (ftc, '_stage_plain'),
+          (c3, 'conv3x3_plain'), (uc, 'upsample_conv2x_plain'),
+          (uc, 'interleave2x2_plain'), (qr, 'qk_ln_rope_plain'),
+          (qr, 'qk_ln_rope_bwd_plain'), (fl, 'fused_ln_plain'),
+          (fl, 'fused_resid_ln_plain'), (gg, 'geglu_plain'),
+          (nm, 'group_norm_plain'))
+
+
+def _host(t):
+    return t.as_subclass(torch.Tensor) if isinstance(t, torch.Tensor) else t
+
+
+def _card(out):
+    if isinstance(out, tuple):
+        return tuple(_card(o) for o in out)
+    return _fake(out) if isinstance(out, torch.Tensor) else out
+
+
+def _stand_ins(events):
+    """Each launcher replaced by a stand-in that notes its counter's name
+    and returns what the kernel would, computed by the real plain version
+    on the host tensors (zeros for the flash kernels and K7), as CUDA-
+    looking tensors."""
+    def computed(name, fn):
+        def launch(*a):
+            events.append(name)
+            return _card(fn(*map(_host, a)))
         return launch
-    for mod, plain in ((fa, 'attention_plain'),
-                       (fa, 'flash_attention_packed_plain'),
-                       (fa, 'flash_bwd_plain'),
-                       (ta, 'temporal_attention_plain'),
-                       (ftc, 'tconv3_plain'),
-                       (c3, 'conv3x3_plain'),
-                       (uc, 'upsample_conv2x_plain'),
-                       (uc, 'interleave2x2_plain')):
+
+    def flash(q, k, v, heads, d, c, kv_valid, want_lse=False):
+        events.append('flash_d512' if d == 512 else 'flash_packed_lse'
+                      if want_lse else 'flash_packed')
+        out = _fake(torch.zeros(q.shape))
+        return (out, torch.zeros(q.shape[0], heads, q.shape[1])) \
+            if want_lse else out
+
+    def flash_bwd(q, k, v, o, lse, do, heads, scale, kv_valid):
+        events.append('flash_bwd')
+        return tuple(torch.zeros(t.shape) for t in (q, k, v))
+
+    def upsample(x, k_rs, bias, want_stats):
+        events.append('upsample_conv2x')
+        n, h, w, _ = x.shape
+        return _fake(torch.zeros(n, 2 * h, 2 * w, k_rs.shape[-1]))
+
+    def gn_stats(x3, fold=None):
+        events.append('gn_stats')
+        n, _, c = x3.shape
+        if fold is None:
+            return (torch.sum(_host(x3), 1, dtype=torch.float32),
+                    torch.sum(_host(x3).float().square(), 1))
+        return tuple(torch.ones(n, c, dtype=x3.dtype) for _ in range(3))
+
+    def gn_apply(x3, mean, a, b, silu):
+        events.append('group_norm')
+        return _fake(_host(x3).clone())
+    return {(fa, '_launch'): flash, (fa, '_launch_bwd'): flash_bwd,
+            (ta, '_launch'): computed('temporal_attention',
+                                      ta.temporal_attention_plain),
+            (ftc, '_launch'): computed('fused_gn_silu_tconv3',
+                                       ftc.tconv3_plain),
+            (c3, '_launch'): computed('conv3x3', c3.conv3x3_plain),
+            (uc, '_launch_upsample'): upsample,
+            (uc, '_launch_interleave'): computed('interleave2x2',
+                                                 uc.interleave2x2_plain),
+            (qr, '_launch'): computed('qk_ln_rope', qr.qk_ln_rope_plain),
+            (qr, '_launch_bwd'): computed('qk_ln_rope_bwd',
+                                          qr.qk_ln_rope_bwd_plain),
+            (fl, '_launch_ln'): computed('fused_ln', fl.fused_ln_plain),
+            (fl, '_launch_resid_ln'): computed('fused_resid_ln',
+                                               fl.fused_resid_ln_plain),
+            (gg, '_launch'): computed('geglu', gg.geglu_plain),
+            (nm, '_launch_stats'): gn_stats,
+            (nm, '_launch_apply'): gn_apply}
+
+
+def _stub(monkeypatch, events):
+    for (mod, name), fn in _stand_ins(events).items():
+        monkeypatch.setattr(mod, name, fn)
+
+
+@pytest.mark.parametrize('name', list(ROWS))
+def test_cuda_tensors_never_reach_plain_versions(monkeypatch, name):
+    """A CUDA tensor reaches its launchers (here counting stand-ins) in
+    the row's order and never a plain version."""
+    launched = []
+    _stub(monkeypatch, launched)
+    for mod, plain in PLAINS:
         monkeypatch.setattr(mod, plain, _refuse)
-    for mod, fn, kind, pair in (
-            (fa, '_launch', name, False), (ta, '_launch', name, False),
-            (ftc, '_launch', name, True), (c3, '_launch', name, True),
-            (uc, '_launch_upsample', 'upsample_conv2x', False),
-            (uc, '_launch_interleave', 'interleave2x2', False)):
-        monkeypatch.setattr(mod, fn, launcher(kind, pair))
-    monkeypatch.setattr(nm, 'group_norm_plain', _refuse)
-    monkeypatch.setattr(nm, '_launch_stats', lambda x3, fold=None: (
-        launched.append('gn_stats'), (x3[:, 0],) * (2 if fold is None
-                                                    else 3))[1])
-    monkeypatch.setattr(nm, '_launch_apply', lambda x3, m, a, b, silu: (
-        launched.append('group_norm'), x3)[1])
-    x = _fake(torch.randn(1, 4, 8, 64))
-    xb = _fake(torch.randn(2, 4, 8, 64).bfloat16())
-    if name == 'group_norm':            # K13: statistics, then the apply
-        nm.group_norm(xb, torch.ones(64), torch.zeros(64), silu=True)
-        want = ['gn_stats', 'group_norm']
-    elif name == 'channel_stats':       # K13's statistics alone
-        c3.channel_stats(xb)
-        want = ['gn_stats']
-    elif name == 'conv3x3':
-        c3.fused_gn_silu_conv3x3(_fake(torch.randn(1, 5, 8, 128)),
-                                 torch.ones(128), torch.zeros(128),
-                                 torch.zeros(256, 128, 3, 3),
-                                 torch.zeros(256), want_stats=True)
-        want = ['gn_stats', 'conv3x3']  # x's statistics, then K6
-    elif name == 'upsample_conv2x':     # K7 widths
-        uc.upsample_conv2x(_fake(torch.randn(1, 3, 4, 64)),
-                           torch.zeros(128, 64, 3, 3), torch.zeros(128))
-    elif name == 'interleave2x2':
-        uc.interleave2x2(x, x, x, x, want_stats=True)
-    elif name == 'upsample_phases':     # narrow: phase convs, then K8
-        uc.upsample_conv2x(_fake(torch.randn(1, 3, 4, 32)),
-                           torch.zeros(32, 32, 3, 3), torch.zeros(32))
-        want = ['interleave2x2']
-    elif name == 'packed':
-        fa.flash_attention_packed(_fake(torch.randn(1, 8, 128)),
-                                  _fake(torch.randn(1, 8, 128)),
-                                  _fake(torch.randn(1, 8, 128)), 2)
-    elif name == 'd512':
-        q = _fake(torch.randn(1, 8, 1, 512))
-        fa.flash_attention(q, q, q)
-    elif name == 'temporal':
-        ta.temporal_attention(x, x, x, 1)
+    ROWS[name].call(_Make(cuda=True))
+    assert launched == ROWS[name].launches
+
+
+@pytest.mark.parametrize('name', list(ROWS))
+def test_cpu_tensors_run_the_plain_version(monkeypatch, name):
+    """A CPU tensor runs the row's plain version, and never a launcher or
+    the kernel library; under grad too, where autograd differentiates the
+    plain version directly (no recompute Function), or the op's own
+    Function runs its backward kernel's plain version."""
+    for (mod, fn) in _stand_ins([]):
+        monkeypatch.setattr(mod, fn, _refuse)
+    monkeypatch.setattr(_build, 'lib', _refuse)
+    monkeypatch.setattr(_build, 'build', _refuse)
+    row, ran = ROWS[name], []
+    if row.cpu_plain is not None:
+        mod, plain = row.cpu_plain
+        real = getattr(mod, plain)
+        monkeypatch.setattr(mod, plain, lambda *a, **k: (
+            ran.append(plain), real(*a, **k))[1])
+    outs, _ = row.call(_Make(cuda=False))
+    if row.cpu_plain is None:       # channel_stats: the plain sums
+        x = _Make(cuda=False)(2, 4, 6, 64).reshape(2, -1, 64)
+        assert not ran and torch.equal(outs[1], torch.sum(x.square(), 1))
     else:
-        ftc.fused_gn_silu_tconv3(x, torch.ones(64), torch.zeros(64),
-                                 torch.zeros(3, 1, 64, 64), torch.zeros(64),
-                                 want_stats=True)
-        want = ['gn_stats', 'tconv']    # x's statistics, then K5
-    assert launched == want
+        assert ran and set(ran) == {row.cpu_plain[1]}
+    if name not in DIFFERENTIABLE:
+        return
+    outs, inputs = row.call(_Make(cuda=False, which='all'))
+    live = [o for o in outs if o is not None]
+    assert all(type(o.grad_fn).__name__ != '_RecomputeBackward'
+               for o in live)
+    grads = torch.autograd.grad([o.float().sum() for o in live],
+                                [i for i in inputs if i is not None])
+    assert all(g is not None for g in grads)
 
 
-@pytest.mark.parametrize('name', ['packed', 'd64', 'temporal', 'tconv'])
+@pytest.mark.parametrize('name', DIFFERENTIABLE)
 def test_differentiable_kernels_launch_forward_and_backward(monkeypatch,
                                                             name):
-    """A recorded call on CUDA tensors: K1/K2-d64 launch the lse forward
-    and K3 (flash_bwd_plain never runs); K4 and K5 launch their forward
-    and run their plain version only inside the backward (the recompute
-    the JAX package also does), K5 through threaded statistics, the first
-    stage's from K13's statistics launch."""
-    fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
-    ta = importlib.import_module('star_tpu_torch.ops.temporal_attention')
-    ftc = importlib.import_module('star_tpu_torch.ops.fused_temporal_conv')
-    nm = importlib.import_module('star_tpu_torch.ops.norms')
+    """A recorded call on CUDA tensors runs its declared backward: a
+    backward kernel (K1/K2-d64: K2 `with_l` then K3; K9: its backward
+    kernel) with no plain version anywhere; or the forward kernels, then
+    the plain version only inside the backward, once for each recorded
+    call, with the gradients of eager autograd through the plain version,
+    bit for bit (K4, K5 through its threaded statistics, K10, K11, K12,
+    K13); channel_stats takes the plain sums."""
+    row = ROWS[name]
     events, phase = [], ['forward']
-
-    def launch_fwd(q, k, v, heads, d, c, kv_valid, want_lse=False):
-        events.append(('flash_fwd', want_lse))
-        return torch.zeros_like(q), torch.zeros(q.shape[0], heads,
-                                                q.shape[1])
-
-    def launch_bwd(q, k, v, o, lse, do, heads, scale, kv_valid):
-        events.append(('flash_bwd', q.is_cuda))
-        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-
-    def in_backward(mod, plain):
+    _stub(monkeypatch, events)
+    for mod, plain in PLAINS:
         real = getattr(mod, plain)
 
-        def run(*a, **k):
-            assert phase[0] == 'backward', f'{plain} ran in the forward'
-            events.append((plain, 'backward'))
-            return real(*a, **k)
+        def run(*a, _real=real, _name=plain, **k):
+            assert row.backward == 'recompute', f'{_name} ran'
+            assert phase[0] == 'backward', f'{_name} ran in the forward'
+            events.append(_name)
+            return _real(*a, **k)
         monkeypatch.setattr(mod, plain, run)
-
-    for mod, plain in ((fa, 'attention_plain'),
-                       (fa, 'flash_attention_packed_plain'),
-                       (fa, 'flash_bwd_plain')):
-        monkeypatch.setattr(mod, plain, _refuse)
-    monkeypatch.setattr(fa, '_launch', launch_fwd)
-    monkeypatch.setattr(fa, '_launch_bwd', launch_bwd)
-    monkeypatch.setattr(ta, '_launch', lambda q, *a: (
-        events.append(('temporal_fwd',)), torch.zeros_like(q))[1])
-    monkeypatch.setattr(ftc, '_launch', lambda x, a, b, k3, bias, res, ws,
-                        pf: (events.append(('tconv_fwd', ws)),
-                             (_fake(torch.zeros(*x.shape[:3], k3.shape[-1])),
-                              (torch.ones(x.shape[0], k3.shape[-1]),) * 2
-                              if ws else None))[1])
-    monkeypatch.setattr(nm, '_launch_stats', lambda x3: (
-        events.append(('gn_stats',)),
-        (torch.sum(x3, 1, dtype=torch.float32),
-         torch.sum(x3.float().square(), 1)))[1])
-    in_backward(ta, 'temporal_attention_plain')
-    in_backward(ftc, 'tconv3_plain')
-    leaf = lambda *shape: _fake(torch.randn(*shape), requires_grad=True)
-    if name == 'packed':
-        q, k, v = (leaf(1, 8, 128) for _ in range(3))
-        out = fa.flash_attention_packed(q, k, v, 2, kv_valid=6)
-        inputs = (q, k, v)
-        want = [('flash_fwd', True), ('flash_bwd', True)]
-    elif name == 'd64':
-        q, k, v = (leaf(1, 8, 2, 64) for _ in range(3))
-        out = fa.flash_attention(q, k, v)
-        inputs = (q, k, v)
-        want = [('flash_fwd', True), ('flash_bwd', True)]
-    elif name == 'temporal':
-        q, k, v = (leaf(1, 4, 8, 64) for _ in range(3))
-        out = ta.temporal_attention(q, k, v, 1)
-        inputs = (q, k, v)
-        want = [('temporal_fwd',), ('temporal_attention_plain', 'backward')]
-    else:
-        x = leaf(1, 4, 8, 64)
-        w = torch.zeros(3, 1, 64, 64, requires_grad=True)
-        y, st = ftc.fused_gn_silu_tconv3(x, torch.ones(64), torch.zeros(64),
-                                         w, torch.zeros(64), want_stats=True)
-        out, _ = ftc.fused_gn_silu_tconv3(y, torch.ones(64), torch.zeros(64),
-                                          w, torch.zeros(64), stats=st)
-        want = [('gn_stats',), ('tconv_fwd', True), ('tconv_fwd', False),
-                ('tconv3_plain', 'backward'), ('tconv3_plain', 'backward')]
-        inputs = (x, w)
+    outs, inputs = row.call(_Make(cuda=True, which='all'))
+    live = [o for o in outs if o is not None]
+    cts = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i))
+           for i, o in enumerate(live)]
+    fwd = list(events)
     phase[0] = 'backward'
-    grads = torch.autograd.grad(out.float().sum(), inputs)
-    assert events == want
-    assert all(g.shape == a.shape for g, a in zip(grads, inputs))
+    grads = torch.autograd.grad(live, inputs, cts, allow_unused=True)
+    bwd = events[len(fwd):]
+    assert (fwd, bwd) == row.grad_launches
+    assert all(g is None or g.shape == a.shape
+               for g, a in zip(grads, inputs))
+    if row.backward != 'recompute':
+        return
+    monkeypatch.undo()
+    outs, inputs = row.call(_Make(cuda=False, which='all'))
+    want = torch.autograd.grad([o for o in outs if o is not None], inputs,
+                               cts, allow_unused=True)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize('case', ['d512', 'conv3x3', 'upsample_conv2x',
-                                  'interleave2x2'])
-def test_kernels_without_backward_refuse_grad(case):
-    """K2 d=512, K6, K7 and K8 on CUDA tensors that require grad, with grad
-    mode on: the launcher raises before building anything."""
-    fa = importlib.import_module('star_tpu_torch.ops.flash_attention')
-    c3 = importlib.import_module('star_tpu_torch.ops.conv3x3')
-    uc = importlib.import_module('star_tpu_torch.ops.upsample_conv')
-    bf = lambda *s: _fake(torch.zeros(*s, dtype=torch.bfloat16), True)
+@pytest.mark.parametrize('name', RECOMPUTED + ['qk_ln_rope',
+                                              'qk_ln_rope_frozen_norm'])
+def test_only_the_inputs_that_need_a_gradient_get_one(monkeypatch, name):
+    """Every other input requires grad, from the first: the recompute
+    differentiates the plain version with respect to exactly the inputs
+    whose needs_input_grad is set (what each tensor argument of the launch
+    required, in each Function of the call, the last first), and K9's
+    backward kernel computes the scale and bias gradients only when one of
+    them requires grad: asked for them with bias requiring grad, and not
+    with x alone (the frozen norm of a LoRA step), on the card's launcher
+    and in the CPU's plain version alike; the gradients asked for come
+    back."""
+    k9 = name.startswith('qk_ln_rope')
+    row, seen = ROWS['qk_ln_rope' if k9 else name], {'launch': [],
+                                                     'plain': []}
+    _stub(monkeypatch, [])
+    if k9:
+        for kind, fn in (('launch', '_launch_bwd'),
+                         ('plain', 'qk_ln_rope_bwd_plain')):
+            real = getattr(qr, fn)
+            monkeypatch.setattr(qr, fn, lambda *a, _real=real, _kind=kind: (
+                seen[_kind].append(a[-1]), _real(*a))[1])
+    else:
+        op = getattr(*row.op)
+        for kind in ('launch', 'plain'):
+            real = getattr(op.module, getattr(op, kind))
+
+            def spy(*a, _real=real, _kind=kind):
+                seen[_kind].append([t.requires_grad for t in a
+                                    if isinstance(t, torch.Tensor)])
+                return _real(*a)
+            monkeypatch.setattr(op.module, getattr(op, kind), spy)
+    which = 'first' if name == 'qk_ln_rope_frozen_norm' else 'every_other'
+    for cuda in (True, False) if k9 else (True,):
+        outs, inputs = row.call(_Make(cuda=cuda, which=which))
+        need = [t for t in inputs if t.requires_grad]
+        assert 0 < len(need) and (len(need) < len(inputs) or name == 'geglu')
+        grads = torch.autograd.grad(
+            [o.float().sum() for o in outs
+             if o is not None and o.requires_grad], need)
+        assert all(g.shape == t.shape for g, t in zip(grads, need))
+    if k9:      # x needs a gradient; bias too, or neither scale nor bias
+        want = name == 'qk_ln_rope'
+        assert seen == {'launch': [want], 'plain': [want]}
+    else:
+        assert seen['launch'] and seen['plain'] == seen['launch'][::-1]
+
+
+@pytest.mark.parametrize('name', [k for k, r in ROWS.items()
+                                  if r.backward == 'refuse']
+                         + ['qk_ln_rope_launcher'])
+def test_kernels_without_backward_refuse_grad(monkeypatch, name):
+    """K2 d=512, K6, K7 and K8 (and K9's forward launcher, which its
+    Function wraps) on CUDA tensors that require grad, with grad mode on:
+    the real launcher raises before building anything."""
+    monkeypatch.setattr(_build, 'lib', _refuse)
     with pytest.raises(RuntimeError, match='no backward kernel'):
-        if case == 'd512':
-            q = bf(1, 8, 1, 512)
-            fa.flash_attention(q, q, q)
-        elif case == 'conv3x3':
-            c3.fused_gn_silu_conv3x3(bf(1, 5, 8, 128), torch.ones(128),
-                                     torch.zeros(128),
-                                     torch.zeros(128, 128, 3, 3),
-                                     torch.zeros(128))
-        elif case == 'upsample_conv2x':
-            uc.upsample_conv2x(bf(1, 3, 4, 64), torch.zeros(128, 64, 3, 3),
-                               torch.zeros(128))
+        if name == 'qk_ln_rope_launcher':
+            x = _fake(torch.zeros(1, 5, 128, dtype=torch.bfloat16), True)
+            qr._launch(*_k9_args(x), 1e-6, 1.0)
         else:
-            p = bf(1, 4, 8, 16)
-            uc.interleave2x2(p, p, p, p)
+            ROWS[name].call(_Make(cuda=True, which='all',
+                                  dtype=torch.bfloat16))
+
+
+def test_launch_counts_reset():
+    """One counter: every kernel of ops.KERNELS in launch_counts(), zeros
+    included; reset_launch_counts() clears it and K9's backward count."""
+    from star_tpu_torch.ops import _contract
+    assert set(ops.launch_counts()) == set(ops.KERNELS) \
+        == set(_contract.COUNTS)
+    assert len(ops.KERNELS) == 16
+    _contract.COUNTS['flash_packed'] += 3
+    _contract.COUNTS['conv3x3'] += 5
+    qr.BACKWARDS += 1
+    counts = ops.launch_counts()
+    assert counts['flash_packed'] >= 3 and counts['conv3x3'] >= 5
+    counts['geglu'] = 7                 # a copy: the counter is not touched
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0} and qr.BACKWARDS == 0
+
+
+@pytest.mark.parametrize('name', ['packed', 'd64', 'tconv', 'qk_ln_rope'])
+def test_benchmark_seams_are_called_through_their_modules(monkeypatch, name):
+    """benchmark/harness/work.LaunchLog replaces fa._launch, fa._launch_bwd,
+    ftc._launch and qk._launch on their modules after import and calls
+    the launchers it found there positionally: the public ops call its
+    replacements, and it reads K9's backward calls from BACKWARDS."""
+    from benchmark.harness.work import LaunchLog
+    _stub(monkeypatch, [])
+    log = LaunchLog()
+    with log.recording():
+        outs, inputs = ROWS[name].call(_Make(cuda=True, which='all'))
+        torch.autograd.grad([o.float().sum() for o in outs], inputs,
+                            allow_unused=True)
+    want = {'packed': ([(1, 2, 8, 6, 64, True)], [(1, 2, 8, 6, 64)], [], [],
+                       0),
+            'd64': ([(1, 2, 8, 8, 64, True)], [(1, 2, 8, 8, 64)], [], [], 0),
+            'tconv': ([], [], [(1, 4, 8, 64, 64, False, True, False),
+                               (1, 4, 8, 64, 64, True, False, False)], [],
+                      0),
+            'qk_ln_rope': ([], [], [], [(5, 5, 128)], 1)}[name]
+    assert (log.flash, log.flash_bwd, log.tconv3, log.qk,
+            log.qk_backwards) == want
+
+
+@pytest.mark.parametrize('device', ['cuda', 'cpu'])
+def test_qk_ln_rope_backwards_counts_a_backward(monkeypatch, device):
+    """K9's BACKWARDS counts each call of its autograd backward, on either
+    device: the backward kernel's launch on the card, its plain version on
+    the CPU."""
+    _stub(monkeypatch, [])
+    ops.reset_launch_counts()
+    for _ in range(2):
+        outs, inputs = _qk(_Make(cuda=device == 'cuda', which='all'))
+        torch.autograd.grad(outs[0].sum(), inputs)
+    assert qr.BACKWARDS == 2
+    assert ops.launch_counts()['qk_ln_rope_bwd'] == 0   # the stand-ins
 
 
 def test_launchers_refuse_what_the_kernels_do_not_take():
@@ -594,20 +891,6 @@ def test_vae_launchers_refuse_what_the_kernels_do_not_take(case):
         launch(*args)
 
 
-def test_launch_counts_reset():
-    from star_tpu_torch import ops
-    ops.flash_attention.PACKED_LAUNCHES = 3
-    ops.fused_temporal_conv.LAUNCHES = 2
-    ops.conv3x3.LAUNCHES = 5
-    ops.upsample_conv.INTERLEAVE_LAUNCHES = 1
-    assert ops.launch_counts()['flash_packed'] == 3
-    assert ops.launch_counts()['conv3x3'] == 5
-    assert ops.launch_counts()['interleave2x2'] == 1
-    ops.reset_launch_counts()
-    assert set(ops.launch_counts().values()) == {0}
-    assert set(ops.launch_counts()) == set(ops.KERNELS)
-
-
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     """Run on a machine with a card: each kernel against its plain version
@@ -617,7 +900,7 @@ def test_kernels_match_plain_versions_on_the_card():
     from star_tpu_torch.ops import (flash_attention as fa,
                                     fused_temporal_conv as ftc,
                                     temporal_attention as ta)
-    from star_tpu_torch.ops.conv3x3 import channel_stats, gn_coeffs
+    from star_tpu_torch.ops.norms import channel_stats, gn_coeffs
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device='cuda').manual_seed(0)
     bf = lambda *s: torch.randn(s, generator=g, device='cuda').bfloat16()
@@ -711,84 +994,6 @@ def _k9_args(x, heads=2, s=None, table_width=64):
     s = x.shape[1] if s is None else s
     return (x, torch.ones(64), torch.zeros(64), torch.ones(s, table_width),
             torch.zeros(s, table_width), heads)
-
-
-def test_qk_ln_rope_launches_for_cuda_tensors_and_plain_for_cpu(monkeypatch):
-    """K9's wrapper: a CUDA tensor reaches the launcher and never the plain
-    version; a CPU tensor gets the plain version and never the launcher."""
-    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
-    launched = []
-    monkeypatch.setattr(qr, '_launch', lambda x, *a: (launched.append(a[-1]),
-                                                      x)[1])
-    monkeypatch.setattr(qr, 'qk_ln_rope_plain', _refuse)
-    qr.qk_ln_rope(*_k9_args(_fake(torch.randn(1, 5, 128))), fold_scale=0.5)
-    assert launched == [0.5]
-    monkeypatch.undo()
-    monkeypatch.setattr(qr, '_launch', _refuse)
-    x = torch.randn(1, 5, 128)
-    got = qr.qk_ln_rope(*_k9_args(x))
-    torch.testing.assert_close(got, qr.qk_ln_rope_plain(*_k9_args(x)))
-
-
-def test_qk_ln_rope_refuses_grad():
-    """K9's forward launcher records no backward: on CUDA tensors that
-    require grad, with grad mode on, it raises before building anything
-    (the wrapper goes through the autograd Function instead, whose
-    backward launches the backward kernel, below)."""
-    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
-    x = _fake(torch.zeros(1, 5, 128, dtype=torch.bfloat16), True)
-    with pytest.raises(RuntimeError, match='no backward kernel'):
-        qr._launch(*_k9_args(x), 1e-6, 1.0)
-
-
-def test_qk_ln_rope_under_grad_launches_both_kernels_on_cuda_and_plain_on_cpu(
-        monkeypatch):
-    """An input requiring grad goes through K9's autograd Function. On a
-    CUDA tensor the forward kernel launches (under the Function, where
-    grad mode is off, so the launcher's refusal does not fire) and the
-    backward launches the backward kernel, asking for the scale and bias
-    gradients only when they require grad; no plain version runs. On a CPU
-    tensor the backward is qk_ln_rope_bwd_plain. The gradients reach x,
-    scale and bias but not the tables, and BACKWARDS counts the backward
-    on both devices."""
-    qr = importlib.import_module('star_tpu_torch.ops.qk_ln_rope')
-    events = []
-
-    def launch(x, *a):
-        assert not qr._build.needs_grad(x), 'the launcher would refuse'
-        events.append('k9')
-        return _fake(torch.zeros(x.shape))
-
-    def launch_bwd(x, ct, sc, bi, cos, sin, heads, eps, fold, want_params):
-        events.append(('k9_bwd', want_params))
-        return torch.zeros(x.shape), torch.zeros(64), torch.zeros(64)
-    monkeypatch.setattr(qr, '_launch', launch)
-    monkeypatch.setattr(qr, '_launch_bwd', launch_bwd)
-    monkeypatch.setattr(qr, 'qk_ln_rope_plain', _refuse)
-    monkeypatch.setattr(qr, 'qk_ln_rope_bwd_plain', _refuse)
-    x = _fake(torch.randn(1, 5, 128), requires_grad=True)
-    sc, bi = torch.ones(64, requires_grad=True), torch.zeros(
-        64, requires_grad=True)
-    cos, sin = torch.ones(5, 64), torch.zeros(5, 64)
-    qr.BACKWARDS = 0
-    out = qr.qk_ln_rope(x, sc, bi, cos, sin, 2, fold_scale=0.5)
-    grads = torch.autograd.grad(out.float().sum(), (x, sc, bi))
-    assert events == ['k9', ('k9_bwd', True)] and qr.BACKWARDS == 1
-    assert [g.shape for g in grads] == [x.shape, (64,), (64,)]
-
-    monkeypatch.undo()
-    monkeypatch.setattr(qr, '_launch', _refuse)
-    monkeypatch.setattr(qr, '_launch_bwd', _refuse)
-    real = qr.qk_ln_rope_bwd_plain
-
-    def bwd_plain(*a):
-        events.append(('bwd_plain', a[-1]))
-        return real(*a)
-    monkeypatch.setattr(qr, 'qk_ln_rope_bwd_plain', bwd_plain)
-    x = torch.randn(1, 5, 128, requires_grad=True)
-    out = qr.qk_ln_rope(x, torch.ones(64), torch.zeros(64), cos, sin, 2)
-    assert torch.autograd.grad(out.sum(), x)[0].shape == x.shape
-    assert events[2:] == [('bwd_plain', False)] and qr.BACKWARDS == 2
 
 
 @pytest.mark.parametrize('case', ['cpu', 'fp32', 'strided_x', 'strided_ct',
@@ -933,93 +1138,6 @@ def test_qk_ln_rope_backward_on_the_card():
 # ------------------------------------------------------------- K10, K11
 
 
-def _ln_args(x, gated, resid):
-    """(y, scale, bias, resid, gate_w) of one K10/K11 call."""
-    c = x.shape[-1]
-    return (x, torch.ones(c), torch.zeros(c),
-            torch.ones_like(x) if resid else None,
-            torch.tensor([0.5, -0.5]) if gated else None)
-
-
-@pytest.mark.parametrize('kind', ['k10', 'k10_gated', 'k11', 'k11_gated'])
-def test_fused_ln_launches_for_cuda_tensors_and_plain_for_cpu(monkeypatch,
-                                                              kind):
-    """K10's and K11's wrappers: a CUDA tensor reaches its launcher and
-    never a plain version; a CPU tensor gets the plain version and never
-    builds or loads the kernel library."""
-    fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
-    from star_tpu_torch.ops import _build
-    gated, resid = kind.endswith('gated'), kind.startswith('k11')
-    launched = []
-    monkeypatch.setattr(fl, '_launch_ln', lambda x, sc, bi, eps, gw: (
-        launched.append(('k10', gw is not None)), x)[1])
-    monkeypatch.setattr(fl, '_launch_resid_ln', lambda y, r, sc, bi, eps,
-                        gw: (launched.append(('k11', gw is not None)),
-                             (y, y))[1])
-    monkeypatch.setattr(fl, 'fused_ln_plain', _refuse)
-    monkeypatch.setattr(fl, 'fused_resid_ln_plain', _refuse)
-    y, sc, bi, r, gw = _ln_args(_fake(torch.randn(2, 5, 128)), gated, resid)
-    if resid:
-        fl.fused_resid_ln(y, sc, bi, _fake(r), gw)
-    else:
-        fl.fused_ln(y, sc, bi, gate_w=gw)
-    assert launched == [(kind[:3], gated)]
-    monkeypatch.undo()
-    for fn in ('_launch_ln', '_launch_resid_ln'):
-        monkeypatch.setattr(fl, fn, _refuse)
-    monkeypatch.setattr(_build, 'lib', _refuse)
-    monkeypatch.setattr(_build, 'build', _refuse)
-    y, sc, bi, r, gw = _ln_args(torch.randn(2, 5, 128), gated, resid)
-    if resid:
-        got = fl.fused_resid_ln(y, sc, bi, r, gw)
-        want = fl.fused_resid_ln_plain(y, sc, bi, r, gw)
-        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
-        got, want = got[0], want[0]
-    else:
-        got = fl.fused_ln(y, sc, bi, gate_w=gw)
-        want = fl.fused_ln_plain(y, sc, bi, gate_w=gw)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize('kind', ['k10', 'k11'])
-def test_fused_ln_under_grad_launches_forward_and_recomputes_plain(
-        monkeypatch, kind):
-    """An input requiring grad goes through the autograd Function: the
-    kernel launches in the forward, and the plain version runs only in
-    the backward (the recompute the JAX custom VJPs do), giving gradients
-    to every input, the gate weights included."""
-    fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
-    events, phase = [], ['forward']
-    monkeypatch.setattr(fl, '_launch_ln', lambda x, sc, bi, eps, gw: (
-        events.append('k10'), _fake(torch.zeros(x.shape)))[1])
-    monkeypatch.setattr(fl, '_launch_resid_ln', lambda y, r, sc, bi, eps,
-                        gw: (events.append('k11'),
-                             (_fake(torch.zeros(y.shape)),
-                              _fake(torch.zeros(y.shape))))[1])
-    for plain in ('fused_ln_plain', 'fused_resid_ln_plain'):
-        real = getattr(fl, plain)
-
-        def run(*a, _real=real, _name=plain, **k):
-            assert phase[0] == 'backward', f'{_name} ran in the forward'
-            events.append(_name)
-            return _real(*a, **k)
-        monkeypatch.setattr(fl, plain, run)
-    leaf = lambda t: _fake(t, requires_grad=True) if t.ndim == 3 else \
-        t.requires_grad_()
-    y, sc, bi, r, gw = (None if t is None else leaf(t) for t in _ln_args(
-        torch.randn(2, 5, 128), True, kind == 'k11'))
-    if kind == 'k11':
-        out, xr = fl.fused_resid_ln(y, sc, bi, r, gw)
-        outs, inputs = [out, xr], (y, r, sc, bi, gw)
-    else:
-        outs, inputs = [fl.fused_ln(y, sc, bi, gate_w=gw)], (y, sc, bi, gw)
-    phase[0] = 'backward'
-    grads = torch.autograd.grad([o.float().sum() for o in outs], inputs)
-    assert events == ([kind, 'fused_resid_ln_plain'] if kind == 'k11'
-                      else [kind, 'fused_ln_plain'])
-    assert all(g.shape == a.shape for g, a in zip(grads, inputs))
-
-
 def _fused_ln_launch_case(case):
     """(launcher, args) of one input K10/K11 do not take."""
     fl = importlib.import_module('star_tpu_torch.ops.fused_ln')
@@ -1037,11 +1155,11 @@ def _fused_ln_launch_case(case):
         'scale_shape': (fl._launch_ln, (bf(2, 5, 128), *p(64), 1e-5, None)),
         'gate_3': (fl._launch_ln, (bf(2, 5, 128), *p(128), 1e-5,
                                    torch.zeros(3))),
-        'resid_shape': (fl._launch_resid_ln, (bf(2, 5, 128), bf(2, 4, 128),
-                                              *p(128), 1e-5, None)),
+        'resid_shape': (fl._launch_resid_ln, (bf(2, 5, 128), *p(128),
+                                              bf(2, 4, 128), None, 1e-5)),
         'resid_fp32': (fl._launch_resid_ln, (
-            bf(2, 5, 128), _fake(torch.zeros(2, 5, 128)), *p(128), 1e-5,
-            None)),
+            bf(2, 5, 128), *p(128), _fake(torch.zeros(2, 5, 128)), None,
+            1e-5)),
     }[case]
 
 
@@ -1073,22 +1191,21 @@ def test_unet_transformer_blocks_reach_k10_and_k11(monkeypatch, block):
     monkeypatch.setattr(fl, 'fused_resid_ln_plain', _refuse)
     monkeypatch.setattr(fl, '_launch_ln', lambda x, sc, bi, eps, gw: (
         calls.append(('k10', gw is not None, x.shape[0])), x)[1])
-    monkeypatch.setattr(fl, '_launch_resid_ln', lambda y, r, sc, bi, eps,
-                        gw: (calls.append(('k11', gw is not None,
-                                           y.shape[0])), (y, y + r))[1])
+    monkeypatch.setattr(fl, '_launch_resid_ln', lambda y, sc, bi, r, gw,
+                        eps: (calls.append(('k11', gw is not None,
+                                            y.shape[0])), (y, y + r))[1])
     monkeypatch.setattr(ta, '_launch', lambda q, k, v, h, scale: q)
     monkeypatch.setattr(gg, 'geglu_plain', _refuse)
-    monkeypatch.setattr(gg, '_launch', lambda p, inner: (
-        calls.append(('k12', p.shape[-1] == 2 * inner,
-                      p.numel() // p.shape[-1] // p.shape[-2])),
-        p[..., :inner])[1])
+    monkeypatch.setattr(gg, '_launch', lambda p: (
+        calls.append(('k12', p.numel() // p.shape[-1] // p.shape[-2])),
+        p[..., :p.shape[-1] // 2])[1])
     with torch.no_grad():
         if block == 'temporal':
             m = TemporalTransformerBlock(64, 1, 64)
             out = m(_fake(torch.randn(2, 4, 6, 64)))
             assert out.shape == (2, 4, 6, 64)
             want = [('k10', True, 2), ('k11', True, 2), ('k11', False, 2),
-                    ('k12', True, 2 * 4)]
+                    ('k12', 2 * 4)]
         else:
             split = block == 'spatial_cfg_split'
             m = SpatialTransformerBlock(64, 1, 64, 32)
@@ -1097,7 +1214,7 @@ def test_unet_transformer_blocks_reach_k10_and_k11(monkeypatch, block):
                     cfg_split=split)
             assert out.shape == (6 if split else 3, 12, 64)
             want = [('k11', False, 3), ('k11', False, 6 if split else 3),
-                    ('k12', True, 6 if split else 3)]
+                    ('k12', 6 if split else 3)]
     assert calls == want
 
 
@@ -1137,13 +1254,13 @@ def test_fused_ln_on_the_card():
     with pytest.raises(ValueError):
         fl.fused_ln(bf(2, 5, 96), torch.ones(96, device='cuda'),
                     torch.zeros(96, device='cuda'))
-    before = fl.RESID_LN_LAUNCHES
+    before = ops.launch_counts()['fused_resid_ln']
     leaves = [t.detach().clone().requires_grad_()
               for t in (x, r, sc.float(), bi.float(), gw.float())]
     got = torch.autograd.grad(fl.fused_resid_ln(
         leaves[0], leaves[2], leaves[3], leaves[1], leaves[4])[0].float()
         .square().sum(), leaves)
-    assert fl.RESID_LN_LAUNCHES == before + 1
+    assert ops.launch_counts()['fused_resid_ln'] == before + 1
     want = torch.autograd.grad(fl.fused_resid_ln_plain(
         leaves[0], leaves[2], leaves[3], leaves[1], leaves[4])[0].float()
         .square().sum(), leaves)

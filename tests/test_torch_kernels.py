@@ -143,7 +143,7 @@ def test_k5_fused_gn_silu_tconv3(b, f, n, c, cout, res, per_frame, alpha):
 
 def test_k5_stats_thread_like_fresh_stats():
     """Threaded statistics equal the statistics of the stored output."""
-    from star_tpu_torch.ops.conv3x3 import channel_stats
+    from star_tpu_torch.ops.norms import channel_stats
     r = rng(6)
     x = t(randn(r, 1, 4, 32, 64))
     sc, bi = t(np.ones(64, np.float32)), t(np.zeros(64, np.float32))

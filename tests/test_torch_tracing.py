@@ -292,9 +292,10 @@ LAUNCHERS = {
                                     _z(16, 64), _z(16, 64), 2, 1e-6, 1.0),
     'kernel.K10': lambda: fl._launch_ln(_fake(4, 320), _z(320), _z(320),
                                         1e-5, None),
-    'kernel.K11': lambda: fl._launch_resid_ln(_fake(4, 320), _fake(4, 320),
-                                              _z(320), _z(320), 1e-5, None),
-    'kernel.K12': lambda: gg._launch(_fake(2, 5, 2 * 1280), 1280),
+    'kernel.K11': lambda: fl._launch_resid_ln(_fake(4, 320), _z(320),
+                                              _z(320), _fake(4, 320), None,
+                                              1e-5),
+    'kernel.K12': lambda: gg._launch(_fake(2, 5, 2 * 1280)),
     'kernel.K13': lambda: nm._launch_stats(_fake(2, 5, 320),
                                            (_z(320), _z(320), 32, 1e-6)),
 }

@@ -10,8 +10,11 @@ replace (the training path):
   K5                 autograd through a 4-stage threaded-statistics chain
                      against jax.grad of the same JAX chain, and a copy that
                      drops the statistics cotangent, which must not pass;
-                     in fp32, and in bf16, where the port's backward runs
-                     its tap products as bf16 GEMMs (`_TapProduct`)
+                     in fp32, and in bf16 through the recompute Function
+                     the card runs (CUDA-looking tensors, the launchers
+                     replaced by their plain versions on the host), whose
+                     backward runs its tap products as bf16 GEMMs
+                     (`_TapProduct`)
 
 Inputs are seeded numpy arrays handed to both sides. Tolerances are
 relative to the reference's largest magnitude, stated in each test.
@@ -26,7 +29,7 @@ import pytest
 import torch
 
 from star_tpu_torch.ops import (flash_attention as fa,
-                                fused_temporal_conv as ftc,
+                                fused_temporal_conv as ftc, norms as nm,
                                 temporal_attention as ta)
 from test_torch_harness import assert_close, randn, rel_err, rng, t
 
@@ -124,7 +127,7 @@ def test_packed_grad_with_dead_kv_tail_matches_pallas():
 
 
 def test_temporal_attention_grad_matches_jax():
-    """K4 under autograd (plain recompute backward) against jax.grad of
+    """K4's plain version under autograd against jax.grad of
     temporal_attention (its einsum-recompute VJP), fp32, F=5: 1e-4."""
     r = rng(6)
     b, f, n, c, h = 2, 5, 12, 128, 2
@@ -183,14 +186,45 @@ def _chain_vs_jax(dtype):
     want = [np.asarray(g.astype(jnp.float32))
             for g in [want[0]] + [g for st in want[1] for g in st]]
 
-    def port_grads(drop):
+    def port_grads(drop, on_card=False):
         leaves = [t(a).to(dtype).requires_grad_()
                   for a in [x] + [a for s in stages for a in s]]
+        if on_card:
+            leaves[0] = _card(leaves[0].detach(), True)
         ps = [tuple(leaves[1 + 4 * i:5 + 4 * i]) for i in range(4)]
         y = _port_chain(leaves[0], ps, drop)
         return torch.autograd.grad(y, leaves, t(ct).to(dtype))
 
     return want, port_grads
+
+
+class _FakeCuda(torch.Tensor):
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _card(a, requires_grad=False):
+    return torch.Tensor._make_subclass(_FakeCuda, a, requires_grad)
+
+
+def _host(a):
+    return a.as_subclass(torch.Tensor) if isinstance(a, torch.Tensor) else a
+
+
+def _k5_on_card(monkeypatch):
+    """K5's launcher and K13's statistics launcher replaced by their
+    plain versions on the host: a chain on CUDA-looking tensors then runs
+    as on the card, K5's recompute Function forward and backward."""
+    real = ftc.tconv3_plain
+
+    def launch(*a):
+        y, st = real(*map(_host, a))
+        return _card(y), st
+    monkeypatch.setattr(ftc, '_launch', launch)
+    monkeypatch.setattr(nm, '_launch_stats', lambda x3: (
+        torch.sum(_host(x3), 1, dtype=torch.float32),
+        torch.sum(_host(x3).float().square(), 1)))
 
 
 def test_fused_tconv_chain_grad_matches_jax_and_needs_the_stats_cotangent():
@@ -221,21 +255,24 @@ def test_fused_tconv_chain_grad_bf16_matches_jax_and_needs_the_stats_cotangent(
     gradient is within 8 bf16 steps of its reference's largest value
     (measured: at most 5.5, the same with the port's earlier fp32
     products; the forward's bf16 roundings differ in order). Dropping the
-    statistics cotangent misses by more than 50 steps (measured: 321)."""
+    statistics cotangent misses by more than 50 steps (measured: 321).
+    The chain runs on CUDA-looking tensors, through K5's recompute
+    Function, as on the card."""
     want, port_grads = _chain_vs_jax(torch.bfloat16)
+    _k5_on_card(monkeypatch)
     products = []
     real = ftc._TapProduct.apply
     monkeypatch.setattr(ftc._TapProduct, 'apply',
                         lambda *a: products.append(1) or real(*a))
-    got = port_grads(False)
-    # each stage's forward (the plain version, on the CPU) and its
-    # backward's recompute go through the bf16 product
+    got = port_grads(False, on_card=True)
+    # each stage's forward (the launcher's stand-in) and its backward's
+    # recompute go through the bf16 product
     assert len(products) == 8
     for ours, ref in zip(got, want):
         assert ours.dtype == torch.bfloat16
-        err = float(np.abs(ours.float().numpy() - ref).max())
+        err = float(np.abs(_host(ours).float().numpy() - ref).max())
         assert err <= 8 * _bf16_step(ref), (err, _bf16_step(ref))
-    worst = max(float(np.abs(ours.float().numpy() - ref).max())
+    worst = max(float(np.abs(_host(ours).float().numpy() - ref).max())
                 / _bf16_step(ref)
-                for ours, ref in zip(port_grads(True), want))
+                for ours, ref in zip(port_grads(True, on_card=True), want))
     assert worst > 50, worst

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from star_tpu_torch import ops
 from star_tpu_torch.ops import _build, upsample_conv as uc
 
 # K7 on the main path: the decoder's three upsamples, on the two 3-frame
@@ -311,7 +312,7 @@ def test_k7_launch_passes_the_plan(recorder, monkeypatch, n, h, w, c):
     monkeypatch.setattr(torch.Tensor, 'contiguous', contiguous)
     cout = 128 if c == 64 else c
     k_rs = torch.randn(4, 2, 2, c, cout)
-    before = uc.UPSAMPLE_LAUNCHES
+    before = ops.launch_counts()['upsample_conv2x']
     out, st = uc._launch_upsample(_fake(n, h, w, c), k_rs,
                                   torch.zeros(cout), True)
     (args,) = recorder.calls
@@ -330,7 +331,7 @@ def test_k7_launch_passes_the_plan(recorder, monkeypatch, n, h, w, c):
             assert torch.equal(wk[:, 4 * ph + tap],
                                k_rs[ph, tap // 2, tap % 2].t().bfloat16())
     assert st[0].shape == (n, cout)
-    assert uc.UPSAMPLE_LAUNCHES == before + 1
+    assert ops.launch_counts()['upsample_conv2x'] == before + 1
 
 
 def test_k7_plan_args_refuse_phase_maps_of_other_strides():
@@ -437,8 +438,8 @@ def test_k7_edges_on_the_card(n, h, w, c, cout):
     x, k_rs, bias = (t.cuda() for t in _inputs(n, h, w, c, cout,
                                                 torch.bfloat16,
                                                 seed=h * w + c))
-    before = uc.UPSAMPLE_LAUNCHES
+    before = ops.launch_counts()['upsample_conv2x']
     y, st = uc._launch_upsample(x, k_rs, bias, True)
-    assert uc.UPSAMPLE_LAUNCHES == before + 1
+    assert ops.launch_counts()['upsample_conv2x'] == before + 1
     yr, sr = uc.upsample_conv2x_plain(x, k_rs, bias, True)
     assert _agree(y, yr) and _stats_agree(st, sr)
